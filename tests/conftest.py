@@ -10,6 +10,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight arch/perf tests — excluded by `make ci-quick` "
         "(-m 'not slow'), run in the nightly full suite")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (a CUDA kernel has no CPU mode); skips "
+        "without one")
 
 
 @pytest.fixture(scope="module", autouse=True)
