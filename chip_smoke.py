@@ -9,12 +9,26 @@ Phases, each fatal on failure:
      serving shapes (B=4, K=4, m=30, V=32000 and V=256128), with the
      race, the tournament and the degenerate tail, mixed seen / live rows
      and mixed keys; times of kernel, plain version and bound;
+  2b. the paged-attention kernel against its plain version at the
+     target-verify, prefill-chunk, draft and TINY GQA shapes, in bf16 and
+     fp32, with shuffled pages, null tails and a FREE row, each bf16
+     element within its rounding bound (which must also catch an
+     off-by-one mask and a wrong page); times of kernel, plain version,
+     bound and an SDPA yardstick;
   3. the dense Algorithm 1 slice at full width: LLAMA_7B target and
      LLAMA_68M draft in bf16 (random weights from a seed), B=4, prompt 16,
      48 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
      the launch counts of that run show it went through the kernels;
+  3b. continuous batching at full width: the same pair through
+     serve_requests over the paged pool (8 slots, page 16, chunk 32,
+     prefix cache), 24 requests submitted at once, gumbel and synthid;
+     requests/s, tokens/s, TTFT, gaps, pages, launch counts, a trace;
+     then the same requests through a Scheduler that times its parts
+     (a separate run: its synchronizes stay out of the timed one);
   4. the TINY pair in fp32, generate on the CPU (plain versions) against
-     generate on the card (kernels).
+     generate on the card (kernels);
+  4b. the TINY pair in fp32, serve_requests (dense and paged) on the CPU
+     against the card, and served against solo generate on the card.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -35,6 +49,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 DEV = "cuda"                 # rehearsals on the CPU set "cpu"
 MARGIN_TOL = 1e-5            # race margin under which a token may flip
 DIST_RTOL, DIST_ATOL = 1e-4, 1e-7   # tournament distributions (sum order)
@@ -304,25 +319,35 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 SLICE = dict(B=4, prompt=16, n_tokens=48, K=4, temperature=0.7)
+DENSE_KERNELS = ("spec_verify_wm", "gumbel_argmax", "tournament_keyed")
+KERNEL_NAMES = DENSE_KERNELS + ("paged_attention",)
 SCHEMES = ("gumbel", "synthid", "synthid-inf")
 PROFILE_TOKENS = 12          # the traced run is short: tracing is slow
 
 
-def phase_slice():
-    """LLAMA_7B / LLAMA_68M in bf16 on the card; returns the launch counts
-    of the fused runs and the per-scheme timings."""
-    import dataclasses
+def make_pair():
+    """LLAMA_7B target and LLAMA_68M draft in bf16, random weights from
+    seeds 0 and 1, on the card (shared by phases 3 and 3b)."""
     import torch
     from repro_torch.configs import LLAMA_7B, LLAMA_68M
-    from repro_torch.kernels import ops
     from repro_torch.models.model import init_params
-    from repro_torch.serve import engine as E
     t0 = time.perf_counter()
     target = init_params(LLAMA_7B, seed=0, dtype=torch.bfloat16, device=DEV)
     draft = init_params(LLAMA_68M, seed=1, dtype=torch.bfloat16, device=DEV)
     torch.cuda.synchronize()
     print(f"slice: weights made in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return target, draft
+
+
+def phase_slice(target, draft):
+    """LLAMA_7B / LLAMA_68M in bf16 on the card; returns the launch counts
+    of the fused runs and the per-scheme timings."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import LLAMA_7B
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
     g = torch.Generator(device="cpu").manual_seed(7)
     prompts = torch.randint(1, LLAMA_7B.vocab, (SLICE["B"], SLICE["prompt"]),
                             generator=g).numpy()
@@ -370,10 +395,8 @@ def phase_slice():
                 target, draft, scfg, prompts, n_tokens=PROFILE_TOKENS,
                 key=keys)))
         print(f"slice {wm}: " + json.dumps(results[wm]))
-    check(all(v > 0 for v in counts.values()),
+    check(all(counts[k] > 0 for k in DENSE_KERNELS),
           f"a kernel of the path was never launched: {counts}")
-    del target, draft
-    torch.cuda.empty_cache()
     return counts, results
 
 
@@ -404,12 +427,417 @@ def profile_generate(run):
     busy_us = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     top = sorted(rows, reverse=True)[:8]
+    ported_us = sum(r[0] for r in rows
+                    if any(f"{k}_kernel" in r[2] for k in KERNEL_NAMES))
     return dict(
         wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
         n_steps=res.n_steps, kernels_per_step=launches / res.n_steps,
+        ported_kernel_share=ported_us / busy_us if busy_us else 0.0,
         host_syncs=syncs,
         top=[dict(name=k[:60], ms=us / 1e3, count=c) for us, c, k in top])
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: the paged-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+PAGE_SIZE = 16
+# (case, B, Sq, H, Hkv, hd, pos range): the target's verify step, a target
+# prefill chunk (one live row and a FREE row), the draft's decode step and
+# the TINY pair's GQA, at the serving page size
+PAGED_CASES = [
+    ("target verify", 8, 5, 32, 32, 128, (17, 1000)),
+    ("prefill chunk", 2, 32, 32, 32, 128, (97, 97)),
+    ("draft decode", 8, 1, 12, 12, 64, (17, 1000)),
+    ("tiny gqa", 8, 5, 4, 2, 64, (17, 1000)),
+]
+
+
+def paged_inputs(B, Sq, H, Hkv, hd, pos_range, dtype, seed):
+    """q, k/v pools with shuffled physical pages, tables whose live pages
+    cover pos[b] + Sq - 1 positions with null-page tails, and a FREE last
+    row (all-null table, pos 1: it attends kv 0 only)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    max_pages = -(-(pos_range[1] + Sq) // PAGE_SIZE) + 1
+    P = B * max_pages + 1
+    q = torch.randn((B, Sq, H, hd), generator=g).to(DEV, dtype)
+    k = torch.randn((P, PAGE_SIZE, Hkv, hd), generator=g).to(DEV, dtype)
+    v = torch.randn((P, PAGE_SIZE, Hkv, hd), generator=g).to(DEV, dtype)
+    pos = torch.randint(pos_range[0], pos_range[1] + 1, (B,), generator=g)
+    pos[-1] = 1
+    perm = torch.randperm(P - 1, generator=g) + 1
+    table = torch.zeros((B, max_pages), dtype=torch.int64)
+    for b in range(B - 1):
+        n = -(-(int(pos[b]) + Sq - 1) // PAGE_SIZE)
+        table[b, :n] = perm[b * max_pages:b * max_pages + n]
+    return q, k, v, table.to(DEV), pos.to(DEV)
+
+
+def paged_bound(q, k, table, pos):
+    """Bytes: the live k/v pages once per (slot, kv head), their table
+    entries, pos, q and out; operations: q·k and p·v over the visited
+    positions, at the rate of the inputs' type."""
+    import torch
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    el = q.element_size()
+    n_vis = [min(table.shape[1], -(-(int(p) + Sq - 1) // PAGE_SIZE))
+             for p in pos.tolist()]
+    nbytes = (sum(n_vis) * (2 * PAGE_SIZE * Hkv * hd * el + 8) + 8 * B
+              + 2 * q.numel() * el)
+    nops = sum(4 * Sq * H * n * PAGE_SIZE * hd for n in n_vis)
+    rate = FP32_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / rate * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def sdpa_yardstick(q, k, v, table, pos):
+    """One scaled_dot_product_attention call over the pre-gathered dense
+    k/v (GQA heads expanded) with the same boolean mask: a yardstick only —
+    the gather is not timed and the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    B, Sq, H, _ = q.shape
+    n_rep = H // k.shape[2]
+    kd = ref.paged_gather(k, table).repeat_interleave(n_rep, 2)
+    vd = ref.paged_gather(v, table).repeat_interleave(n_rep, 2)
+    ext = kd.shape[1]
+    lim = pos[:, None] + torch.arange(Sq, device=q.device)[None]
+    mask = (torch.arange(ext, device=q.device)[None, None]
+            < lim[:, :, None])[:, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kd, vd))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def paged_faults(args, want, tol):
+    """How far the tolerance sees two faults on the longest live row: the
+    kernel attending one position too many (an off-by-one mask) and
+    reading a wrong page in the middle of the row.  Returns the largest
+    |out - want| / tol over that row for each; both must exceed 1."""
+    from repro_torch.kernels import ops
+    q, k, v, table, pos = args
+    Sq = q.shape[1]
+    b = int(pos[:-1].argmax())
+    n = -(-(int(pos[b]) + Sq - 1) // PAGE_SIZE)
+    shifted = pos.clone()
+    shifted[b] += 1
+    swapped = table.clone()
+    swapped[b, n // 2] = table[b, n // 2 - 1]
+
+    def ratio(out):
+        return float(((out.float() - want.float()).abs() / tol)[b].max())
+    return (ratio(ops.paged_attention(q, k, v, table, shifted)),
+            ratio(ops.paged_attention(q, k, v, swapped, pos)))
+
+
+def phase_paged_kernel():
+    """Every paged case in bf16 and fp32 against the plain version.  fp32:
+    max abs error within 1e-5 (another order of float sums).  bf16: each
+    element within ref.paged_attention_tol — two bf16 ulps of the element
+    plus two flips of the row's worst score or probability rounding, the
+    most another sum order can move it — and the same tolerance must see an
+    off-by-one mask and a wrong page on the longest row.  The kernel's, the
+    plain version's and SDPA's times beside the bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    record = []
+    for name, B, Sq, H, Hkv, hd, pos_range in PAGED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_inputs(B, Sq, H, Hkv, hd, pos_range, dtype,
+                                seed=B * Sq * H)
+            out = ops.paged_attention(*args)
+            torch.cuda.synchronize()
+            want = ref.paged_attention_ref(*args)
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            tag = f"paged_attention {name} {str(dtype)[6:]}"
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"{tag}: non-finite output")
+            if dtype == torch.float32:
+                tol = torch.full_like(diff, 1e-5)
+                faults = {}
+            else:
+                tol = ref.paged_attention_tol(*args, want)
+                off, page = paged_faults(args, want, tol)
+                check(off > 1 and page > 1, f"{tag}: the tolerance misses "
+                      f"an off-by-one mask ({off}) or a wrong page ({page})")
+                faults = dict(off_by_one_over_tol=off,
+                              wrong_page_over_tol=page)
+            ratio = float((diff / tol).max())
+            check(ratio <= 1, f"{tag}: max abs err {err}, {ratio} times "
+                  f"its tolerance")
+            times = timings("paged_attention_kernel",
+                            lambda: ops.paged_attention(*args),
+                            lambda: ref.paged_attention_ref(*args))
+            bnd, by = paged_bound(args[0], args[1], args[3], args[4])
+            record.append(dict(case=tag, max_abs_err=err, err_over_tol=ratio,
+                               tol_median=float(tol.median()), **faults,
+                               **times,
+                               library_ms=device_ms(sdpa_yardstick(*args), 10),
+                               bound_ms=bnd, bound_by=by))
+    for r in record:
+        print("kernel-check " + json.dumps(r))
+    return record
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: continuous batching over the paged pool at full width
+# ---------------------------------------------------------------------------
+
+SERVE = dict(batch=8, page_size=PAGE_SIZE, prefill_chunk=32, sync_every=4,
+             n_requests=24, prompt=(16, 256), system=64, n_tokens=(16, 64),
+             K=4, temperature=0.7)
+SERVE_SCHEMES = ("gumbel", "synthid")
+
+
+def serve_workload(seed, n, prompt, n_tokens, vocab, system):
+    """n requests submitted at once: prompt lengths in ``prompt``, every
+    other one opening with one shared ``system``-token system prompt."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sys_prompt = rng.integers(1, vocab, system)
+    reqs = []
+    for i in range(n):
+        S0 = int(rng.integers(prompt[0], prompt[1] + 1))
+        if i % 2:
+            S0 = max(S0, system + 1)
+            p = np.concatenate([sys_prompt, rng.integers(1, vocab,
+                                                         S0 - system)])
+        else:
+            p = rng.integers(1, vocab, S0)
+        reqs.append((p.astype(np.int32),
+                     int(rng.integers(n_tokens[0], n_tokens[1] + 1))))
+    return reqs
+
+
+# the scheduler's parts of a sync round, timed each with a synchronize at
+# its end: prefill chunks and finalize, page growth, the decode chunk (the
+# spec steps), the host snapshot, flush and admission
+SCHED_PARTS = ("_prefill_step", "_ensure_pages", "_run_chunk",
+               "_take_snapshot", "_flush", "_admit")
+
+
+def parts_scheduler():
+    """A Scheduler subclass that times each of SCHED_PARTS, synchronizing
+    the card at its end.  Only the separate breakdown run builds it: the
+    end-to-end numbers come from an unpatched serve_requests."""
+    import torch
+    from repro_torch.serve import scheduler as S
+
+    class PartsScheduler(S.Scheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.host_s = dict.fromkeys(SCHED_PARTS, 0.0)
+
+    def timed(name):
+        part = getattr(S.Scheduler, name)
+
+        def run(self, *a, **kw):
+            t = time.perf_counter()
+            out = part(self, *a, **kw)
+            if DEV != "cpu":
+                torch.cuda.synchronize()
+            self.host_s[name] += time.perf_counter() - t
+            return out
+        return run
+
+    for name in SCHED_PARTS:
+        setattr(PartsScheduler, name, timed(name))
+    return PartsScheduler
+
+
+def serve_config(reqs, **over):
+    """The paged serving config: num_pages covers the worst-case live
+    footprint of ``batch`` slots (the scheduler raises on mid-request
+    exhaustion) and stays below batch × max_pages, so the pool and not the
+    rectangle bounds memory."""
+    from repro_torch.serve.config import ServeConfig
+    c = dict(SERVE, **over)
+    K1, ps = c["K"] + 1, c["page_size"]
+    max_S0 = max(len(p) for p, _ in reqs)
+    max_n = max(n for _, n in reqs)
+    max_seq = max_S0 + 1 + K1 * max_n + 2
+    max_pages = -(-max_seq // ps)
+    per_slot = min(max_pages, -(-(max_S0 + max_n - 2
+                                  + (c["sync_every"] + 1) * K1) // ps))
+    num_pages = c["batch"] * per_slot + 1 + c["batch"]
+    check(num_pages < c["batch"] * max_pages,
+          f"pool of {num_pages} pages not below {c['batch']} x {max_pages}")
+    return ServeConfig(batch=c["batch"], key=0xC0FFEE, page_size=ps,
+                       num_pages=num_pages, prefill_chunk=c["prefill_chunk"],
+                       sync_every=c["sync_every"], prefix_cache=True)
+
+
+def phase_serve(target, draft):
+    """24 requests through serve_requests (paged, prefix cache) for gumbel
+    and synthid at full width; returns the launch counts and the results.
+    The timed runs are serve_requests as users call it; for gumbel the
+    same requests then go once more through a Scheduler that times its
+    parts, for the breakdown and the FIFO and admit-order checks (the
+    admission logic does not depend on the scheme)."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.configs import LLAMA_7B
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.scheduler import as_request
+    reqs = serve_workload(5, SERVE["n_requests"], SERVE["prompt"],
+                          SERVE["n_tokens"], LLAMA_7B.vocab, SERVE["system"])
+    cfg = serve_config(reqs)
+    PartsScheduler = parts_scheduler()
+    nt, nd = target.cfg.n_layers, draft.cfg.n_layers
+    per_step, per_chunk = nt + nd * (SERVE["K"] + 1), nt + nd
+    counts = {k: 0 for k in ops.LAUNCHES}
+    results = {}
+    for wm in SERVE_SCHEMES:
+        scfg = E.SpecConfig(K=SERVE["K"], watermark=wm,
+                            temperature=SERVE["temperature"])
+        E.serve_requests(target, draft, scfg, reqs[:2], config=cfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = E.serve_requests(target, draft, scfg, reqs, config=cfg,
+                               stats_out=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            counts[k] += v
+        check(len(res) == len(reqs), f"serve {wm}: {len(res)} results")
+        for r, (p, n) in zip(res, reqs):
+            check(n <= r.length <= n + SERVE["K"],
+                  f"serve {wm}: uid {r.uid} length {r.length}, target {n}")
+            check(bool(((r.tokens >= 0) & (r.tokens < LLAMA_7B.vocab)).all()),
+                  f"serve {wm}: token out of range")
+        check(stats["pages_used"] == stats["prefix_pages"],
+              f"serve {wm}: {stats['pages_used']} pages used at the end, "
+              f"{stats['prefix_pages']} held by the prefix cache")
+        check(launches["paged_attention"] > 0,
+              f"serve {wm}: paged_attention never launched")
+        max_alloc = torch.cuda.max_memory_allocated() / 2**30
+        n_steps = int(stats["spec_steps"])
+        n_chunks = int(stats["prefill_chunks"])
+        n_tok = int(sum(r.length for r in res))
+        results[wm] = dict(
+            seconds=secs, requests_per_s=len(res) / secs,
+            tokens_per_s=n_tok / secs, tokens=n_tok,
+            ttft_mean_s=stats["ttft_mean_s"], gap_p95_s=stats["gap_p95_s"],
+            sync_rounds=int(stats["sync_rounds"]), n_steps=n_steps,
+            ms_per_step=secs / n_steps * 1e3, prefill_chunks=n_chunks,
+            aatps=stats["aatps"], prefix_hits=stats["prefix_hits"],
+            pages_saved=stats["prefix_pages_saved"],
+            pages_peak=stats["pages_peak"], num_pages=cfg.num_pages,
+            max_allocated_gib=max_alloc, launches=launches,
+            # one paged launch per target layer and one per draft layer for
+            # each of the K proposals and the commit re-feed, per spec step;
+            # one per target and draft layer per prefill chunk
+            paged_launches_per_step=per_step,
+            paged_launches_expected=per_step * n_steps + per_chunk * n_chunks)
+
+        if wm == SERVE_SCHEMES[0]:
+            sched = PartsScheduler(target, draft, scfg, **cfg.resolved(
+                [as_request(r) for r in reqs]).scheduler_kwargs())
+            sched.submit_many(reqs)
+            again = sched.run()
+            first = [e[1] for e in sched.events
+                     if e[0] == "admit_chunk" and e[2] == 0]
+            check(first == list(range(len(reqs))),
+                  f"serve {wm}: slots not taken FIFO: {first}")
+            check(sorted(sched.admit_order) == list(range(len(reqs))),
+                  f"serve {wm}: admit order {sched.admit_order}")
+            pool = sum(c[k].numel() * c[k].element_size()
+                       for c in (sched.carry["state"]["t_cache"],
+                                 sched.carry["state"]["d_cache"])
+                       for k in ("k", "v"))
+            results[wm]["parts"] = dict(
+                seconds=sum(sched.host_s.values()),
+                n_steps=sched.carry["n_steps"],
+                decode_ms_per_step=(sched.host_s["_run_chunk"]
+                                    / sched.carry["n_steps"] * 1e3),
+                part_s=sched.host_s,
+                same_tokens=sum(np.array_equal(a.tokens, b.tokens)
+                                for a, b in zip(res, again)))
+            del again, sched
+        results[wm]["pool_gib"] = pool / 2**30
+
+        def traced(scfg=scfg):
+            st = {}
+            E.serve_requests(target, draft, scfg, reqs[:8:2], config=cfg,
+                             stats_out=st)
+            return types.SimpleNamespace(n_steps=int(st["spec_steps"]))
+
+        results[wm]["profile"] = profile_generate(traced)
+        print(f"serve {wm}: " + json.dumps(results[wm]))
+        del res
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel of the paged path was never launched: {counts}")
+    return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: serve_requests on the CPU against the card, TINY pair in fp32
+# ---------------------------------------------------------------------------
+
+
+def phase_tiny_serve():
+    """Paged and dense serving, gumbel and synthid: the card's requests
+    equal the CPU's (tokens, provenance, context hashes, masks) outside
+    counted margin rows, and on the card every served request equals its
+    solo generate."""
+    import torch
+    from repro_torch.configs import TINY_DRAFT, TINY_TARGET
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import divergence
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = [init_params(c, seed=s, device="cpu")
+           for c, s in ((TINY_TARGET, 3), (TINY_DRAFT, 4))]
+    gpu = [m.to(DEV) for m in (init_params(TINY_TARGET, seed=3, device="cpu"),
+                               init_params(TINY_DRAFT, seed=4, device="cpu"))]
+    reqs = serve_workload(9, 10, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
+    modes = {"dense": dict(),
+             "paged": dict(page_size=4, num_pages=120, prefill_chunk=8,
+                           prefix_cache=True)}
+    margin_rows = n_rows = 0
+
+    def compare(a, b, models, scfg, prompt, tag):
+        j = divergence.first_divergence(a, b, 0)
+        if j is None:
+            n = int(a.lengths[0])
+            check(bool((a.ctx_hashes[:, :n] == b.ctx_hashes[:, :n]).all()
+                       and (a.u[:, :n] == b.u[:, :n]).all()),
+                  f"{tag}: context hashes or coins differ")
+            return 0
+        marg = divergence.decision_margin(*models, scfg, prompt, a, 0, j)
+        check(marg < MARGIN_TOL, f"{tag}: parts at {j} with margin {marg}")
+        return 1
+
+    for wm in SERVE_SCHEMES:
+        scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
+        for mode, kw in modes.items():
+            cfg = ServeConfig(batch=4, key=99, sync_every=3, **kw)
+            rc = E.serve_requests(*cpu, scfg, reqs, config=cfg)
+            rg = E.serve_requests(*gpu, scfg, reqs, config=cfg)
+            for a, b, (p, n) in zip(rc, rg, reqs):
+                tag = f"tiny serve {wm} {mode} uid {a.uid}"
+                margin_rows += compare(a.as_generation_result(),
+                                       b.as_generation_result(), cpu, scfg,
+                                       p, tag)
+                solo = E.generate(*gpu, scfg, p[None], n_tokens=n, key=99)
+                margin_rows += compare(b.as_generation_result(), solo, gpu,
+                                       scfg, p, tag + " vs solo")
+                n_rows += 2
+    print(f"tiny serve: margin rows {margin_rows} of {n_rows}")
+    return margin_rows
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +886,9 @@ KERNELS = [
      "src/repro/kernels/gumbel_argmax.py:70", "gumbel_argmax V=32000"),
     ("tournament_keyed", "src/repro_torch/kernels/csrc/tournament_keyed.cu",
      "src/repro/kernels/tournament.py:88", "tournament_keyed V=32000"),
+    ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:81",
+     "paged_attention target verify bfloat16"),
 ]
 
 
@@ -490,9 +921,26 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    record = phase_kernels()
-    counts, slice_results = phase_slice()
-    tiny_margin_rows = phase_tiny()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    record = timed("2 kernels", phase_kernels)
+    record += timed("2b paged kernel", phase_paged_kernel)
+    target, draft = make_pair()
+    counts, slice_results = timed("3 generate", phase_slice, target, draft)
+    serve_counts, serve_results = timed("3b serve_requests", phase_serve,
+                                        target, draft)
+    del target, draft
+    torch.cuda.empty_cache()
+    tiny_margin_rows = timed("4 tiny generate", phase_tiny)
+    tiny_serve_margin_rows = timed("4b tiny serve_requests",
+                                   phase_tiny_serve)
 
     by_case = {r["case"]: r for r in record}
     kernels = []
@@ -501,12 +949,18 @@ def main() -> int:
         cases = [x for x in record if x["case"].startswith(name)]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name],
+            launches=counts[name] + serve_counts[name],
+            launches_by_path={"generate": counts[name],
+                              "serve_requests": serve_counts[name]},
             max_abs_err=max(x["max_abs_err"] for x in cases),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
-    print(json.dumps({"slice": slice_results,
+            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+    print(json.dumps({"slice": slice_results, "serve": serve_results,
+                      "launches": {"generate": counts,
+                                   "serve_requests": serve_counts},
                       "tiny_margin_rows": tiny_margin_rows,
+                      "tiny_serve_margin_rows": tiny_serve_margin_rows,
+                      "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,6 +12,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional
 
 import torch
@@ -28,9 +29,12 @@ DEFAULT_STREAMS = (_prf.STREAM_TARGET, _prf.STREAM_PLAIN + 2,
 # a working row of 4·V bytes lives in shared memory up to this size
 # (V <= 51200); past it the kernels keep the row in device memory
 SMEM_ROW_MAX = 200 * 1024
+# the paged-attention kernel's 256 threads hold one page of one kv head in
+# flight, four 16-byte vectors each (PA_THREADS · PA_INFLIGHT · 16)
+PAGED_PAGE_BYTES = 256 * 4 * 16
 
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0, "gumbel_argmax": 0,
-                            "tournament_keyed": 0}
+                            "tournament_keyed": 0, "paged_attention": 0}
 
 
 def reset_launches() -> None:
@@ -161,3 +165,52 @@ def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
         *streams, _stream(p))
     _launched("spec_verify_wm", rc)
     return n_acc, prefix, etok, (estat if tournament else estat[:, 0])
+
+
+def paged_attention(q, k_pool, v_pool, page_table, pos):
+    """Attention of q (B, Sq, H, hd) over a paged KV pool: pools (P,
+    page_size, Hkv, hd), page_table (B, max_pages) int64 physical page ids
+    (0 = null), pos () or (B,) int64; query i attends logical kv positions
+    < pos + i, GQA head h reads kv head h // (H / Hkv).  Returns (B, Sq, H,
+    hd) in the pool's type.  The kernel takes float32 or bfloat16 pools
+    (q of the same type), int64 tables and positions (no conversion),
+    16-byte aligned pools (it reads them in 16-byte vectors), hd a
+    multiple of 32 up to 256, a page size that is a power of two up to 32
+    (one instantiation each), and a page of one kv head of at most
+    PAGED_PAGE_BYTES (what its threads hold in flight)."""
+    B, Sq, H, hd = q.shape
+    pos = torch.as_tensor(pos, device=q.device).expand(B)
+    if not _on_cuda(q, k_pool, v_pool, page_table, pos):
+        return ref.paged_attention_ref(q, k_pool, v_pool, page_table, pos)
+    P, ps, Hkv, _ = k_pool.shape
+    max_pages = page_table.shape[1]
+    dtype = k_pool.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_attention: pool dtype {dtype}, the kernel "
+                        "takes float32 or bfloat16")
+    if H % Hkv or hd % 32 or hd > 256:
+        raise ValueError(f"paged_attention: H={H}, Hkv={Hkv}, hd={hd}; the "
+                         "kernel needs H % Hkv == 0 and hd % 32 == 0, "
+                         "hd <= 256")
+    q = _arg(q, dtype, (B, Sq, H, hd), "q")
+    k_pool = _arg(k_pool, dtype, (P, ps, Hkv, hd), "k_pool")
+    v_pool = _arg(v_pool, dtype, (P, ps, Hkv, hd), "v_pool")
+    page_table = _arg(page_table, torch.int64, (B, max_pages), "page_table")
+    pos = _arg(pos, torch.int64, (B,), "pos")
+    if ps not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"paged_attention: page_size {ps}; the kernel "
+                         "takes a power of two up to 32")
+    if ps * hd * k_pool.element_size() > PAGED_PAGE_BYTES:
+        raise ValueError(f"paged_attention: page_size {ps} x hd {hd} of "
+                         f"{dtype} exceeds the kernel's {PAGED_PAGE_BYTES}"
+                         "-byte page")
+    if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("paged_attention: the kernel reads the pools in "
+                         "16-byte vectors; they must be 16-byte aligned")
+    out = torch.empty((B, Sq, H, hd), dtype=dtype, device=q.device)
+    rc = build.load().paged_attention_launch(
+        _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(pos),
+        _ptr(out), B, Sq, H, Hkv, hd, ps, max_pages,
+        int(dtype == torch.bfloat16), 1.0 / math.sqrt(hd), _stream(q))
+    _launched("paged_attention", rc)
+    return out

@@ -121,3 +121,66 @@ def spec_verify_wm_ref(p, q, tokens, u, keys, ctx_hashes, seen, live, *,
     return (torch.where(lv, n_acc, 0), torch.where(lv[:, None], prefix, 0),
             torch.where(lv, etok, 0),
             torch.where(lv if estat.ndim == 1 else lv[:, None], estat, 0.0))
+
+
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor):
+    """A slot-major dense view of a paged pool: pool (P, page_size, Hkv,
+    hd), page_table (B, max_pages) -> (B, max_pages·page_size, Hkv, hd) in
+    logical position order.  Null-page (0) tails gather garbage at
+    positions past the slot's allocation, which the position gate masks."""
+    B, n_pages = page_table.shape
+    return pool[page_table].reshape((B, n_pages * pool.shape[1])
+                                    + tuple(pool.shape[2:]))
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, pos):
+    """The plain version of ``csrc/paged_attention.cu``: the page-table
+    gather, then ``layers.decode_attention``'s masked-softmax math over the
+    whole gathered extent.  q (B, Sq, H, hd); pools (P, page_size, Hkv,
+    hd); page_table (B, max_pages); pos () or (B,): query i attends logical
+    kv positions < pos + i.  Returns (B, Sq, H, hd) in the pool's type."""
+    from repro_torch.models import layers as L
+    B = q.shape[0]
+    pos = torch.as_tensor(pos, device=q.device).expand(B)
+    return L.decode_attention(q, paged_gather(k_pool, page_table),
+                              paged_gather(v_pool, page_table), pos)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at |x| (8 significant bits), in
+    float32; 0 where x is 0."""
+    x = x.float().abs()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x > 0, ulp, 0.0)
+
+
+def paged_attention_tol(q, k_pool, v_pool, page_table, pos, want, *,
+                        flips: int = 2):
+    """Per-element bound on |kernel - plain version| for bfloat16
+    ``paged_attention`` when both keep the plain version's rounding points
+    and differ only in the order of their float32 sums.  Such a difference
+    can round a q·k score one bf16 ulp the other way (its logit moves by
+    ulp·scale, its probability p by p·expm1(ulp·scale)), round a
+    probability one ulp the other way (at most 2^-7·p) and round the output
+    one ulp the other way.  A flip at position j moves an output element by
+    at most Δp_j·(max|v_j| + max|out|); the bound allows ``flips`` flips per
+    row, each as large as the row's largest, plus two ulps of each output
+    element.  ``want`` is the plain version's output."""
+    B, Sq, H, hd = q.shape
+    n_rep = H // k_pool.shape[2]
+    kd = paged_gather(k_pool, page_table).float().repeat_interleave(n_rep, 2)
+    vd = paged_gather(v_pool, page_table).float().repeat_interleave(n_rep, 2)
+    scale = hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kd).to(q.dtype).float()
+    pos = torch.as_tensor(pos, device=q.device).expand(B)
+    lim = pos[:, None] + torch.arange(Sq, device=q.device)[None]
+    valid = (torch.arange(kd.shape[1], device=q.device)[None, None]
+             < lim[:, :, None])[:, None]
+    p = torch.softmax(torch.where(valid, s * scale,
+                                  torch.finfo(torch.float32).min), -1)
+    dp = p * (torch.expm1(bf16_ulp(s) * scale) + 2.0 ** -7)
+    out = want.float().transpose(1, 2)                       # (B, H, Sq, hd)
+    reach = (vd.abs().amax(-1).transpose(1, 2)[:, :, None]   # (B, H, 1, T)
+             + out.abs().amax(-1, keepdim=True))
+    per_flip = (dp * reach).amax(-1).transpose(1, 2)         # (B, Sq, H)
+    return 2 * bf16_ulp(want) + flips * per_flip[..., None]

@@ -9,6 +9,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 NEG = torch.finfo(torch.float32).min   # the reference's mask sentinel
 
 
@@ -98,6 +100,40 @@ def cache_write(cache, kv, pos):
     rows = torch.arange(B, device=kv.device)[:, None]
     cache[rows, idx] = kv.to(cache.dtype)
     return cache
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, pos, *, window=0,
+                           grouped=False):
+    """``decode_attention`` through page indirection: pools (P, page_size,
+    Hkv, hd) and per-slot page tables (B, max_pages) of physical page ids
+    (0 = the null page) replace the dense (B, S, Hkv, hd) cache.  A CPU
+    tensor takes the plain gather + masked softmax, a CUDA tensor the
+    paged-attention kernel (``kernels.ops.paged_attention``)."""
+    if window or grouped:
+        raise NotImplementedError(
+            "paged_decode_attention: only the non-grouped path with "
+            "window=0 is ported")
+    return ops.paged_attention(q, k_pool, v_pool, page_table, pos)
+
+
+def paged_cache_write(pool, page_table, kv, pos):
+    """Write kv (B, Sq, Hkv, hd) into a paged pool (P, page_size, Hkv, hd)
+    at logical positions pos..pos+Sq-1 of each slot (pos () or (B,)),
+    routed through the slot's page-table row, in place.  A position past
+    the table, or on a null tail, lands in page 0, which the position gate
+    hides from every read."""
+    n_pool, page_size = pool.shape[:2]
+    B, Sq = kv.shape[:2]
+    max_pages = page_table.shape[1]
+    pos = torch.as_tensor(pos, device=kv.device).expand(B)
+    idx = pos[:, None] + torch.arange(Sq, device=kv.device)[None]
+    lpage = idx // page_size
+    phys = page_table.gather(1, torch.clamp_max(lpage, max_pages - 1))
+    phys = torch.where(lpage < max_pages, phys, 0)
+    flat = pool.view((n_pool * page_size,) + tuple(pool.shape[2:]))
+    flat[(phys * page_size + idx % page_size).reshape(-1)] = \
+        kv.reshape((B * Sq,) + tuple(kv.shape[2:])).to(pool.dtype)
+    return pool
 
 
 def apply_ffn(w_in, w_gate, w_out, x, act: str):

@@ -6,6 +6,9 @@ Weights are layer-stacked like the reference's scanned params (leading
 axis L), under the reference's names, so ``convert`` copies a JAX params
 tree leaf for leaf.  The KV cache is a dict {k, v: (L, B, S, Hkv, hd),
 pos: (B,) int64}; unlike the reference, extend/prefill write it in place.
+A paged cache (``init_paged_cache``) holds pools {k, v: (L, P, page_size,
+Hkv, hd)}, a ``page_table`` (B, max_pages) and ``pos``; ``extend_step``
+reads and appends through the table when the cache has one.
 """
 from __future__ import annotations
 
@@ -85,6 +88,24 @@ class Transformer(nn.Module):
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
                 "pos": torch.zeros(batch, dtype=torch.int64, device=dev)}
 
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         max_pages: int) -> Cache:
+        """A zero block-paged KV cache in the weights' type: a pool of
+        ``num_pages`` pages of ``page_size`` positions per layer, a
+        per-slot page table of physical page ids, all null (page 0, which
+        allocators never hand out), and pos 0.  Slots share the pool, so
+        memory is bounded by the tokens in flight, not by ``batch ×
+        max_seq``."""
+        cfg = self.cfg
+        dev, dtype = self.embed.device, self.embed.dtype
+        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "page_table": torch.zeros((batch, max_pages),
+                                          dtype=torch.int64, device=dev),
+                "pos": torch.zeros(batch, dtype=torch.int64, device=dev)}
+
     # -- forward -----------------------------------------------------------
 
     def _layer(self, i: int, x, positions, attend):
@@ -126,12 +147,19 @@ class Transformer(nn.Module):
     def extend_step(self, tokens: torch.Tensor, cache: Cache
                     ) -> Tuple[torch.Tensor, Cache]:
         """Run tokens (B, Sq) on from per-row positions cache["pos"] (B,):
-        -> (logits (B, Sq, V), cache with pos advanced by Sq)."""
+        -> (logits (B, Sq, V), cache with pos advanced by Sq).  A cache
+        with a ``page_table`` is read and written through it."""
         pos = cache["pos"]
         Sq = tokens.shape[1]
         positions = pos[:, None] + torch.arange(Sq, device=tokens.device)[None]
+        table = cache.get("page_table")
 
         def attend(i, q, k, v):
+            if table is not None:
+                L.paged_cache_write(cache["k"][i], table, k, pos)
+                L.paged_cache_write(cache["v"][i], table, v, pos)
+                return L.paged_decode_attention(
+                    q, cache["k"][i], cache["v"][i], table, pos + 1)
             L.cache_write(cache["k"][i], k, pos)
             L.cache_write(cache["v"][i], v, pos)
             return L.decode_attention(q, cache["k"][i], cache["v"][i],

@@ -8,10 +8,13 @@ decoder-generic tail (``fused="off"``), and the per-row commit.  Every
 token the step samples goes through the decoder's batched
 ``draft_sampler`` or the fused tail, i.e. through a kernel on the card.
 
-``generate`` loops spec steps on the host and reads the ``done`` flags
-once per step (one device-to-host sync per spec step); a step in which no
-slot is live never runs, so ``n_steps`` equals the reference's.  The KV
-caches are written in place, so a resumed ``state`` is consumed.
+``make_gen_loop`` runs spec steps on the host over a carry of output
+buffers (``init_gen_carry``) and reads the ``done`` flags once per step
+(one device-to-host sync per spec step); a step in which no slot is live
+never runs, so ``n_steps`` equals the reference's.  ``generate`` runs one
+loop over a prefilled batch; ``serve_requests`` runs it in rounds under
+the continuous-batching ``serve.scheduler.Scheduler``.  The KV caches are
+written in place, so a resumed ``state`` is consumed.
 """
 from __future__ import annotations
 
@@ -166,6 +169,46 @@ def init_state(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
                                       device=dev),
             "hist": hist, "hist_n": (~gated0).to(torch.int64),
             "step_idx": 0}
+
+
+def init_empty_paged_state(t_model: Transformer, d_model: Transformer,
+                           scfg: SpecConfig, batch: int, *, num_pages: int,
+                           page_size: int, max_pages: int,
+                           max_seq: Optional[int] = None) -> Dict[str, Any]:
+    """A zero engine state over block-paged KV pools, before any prefill:
+    every slot has an all-null page table and pos 0, so a frozen slot's
+    writes land in the null page and the position gate hides them.  The
+    scheduler's chunked admission fills slots in place, and its finalize
+    samples the first token as ``init_state`` does.  Both caches page
+    (the transformer drafter joins the pool; ``max_seq`` would size a
+    recurrent draft's dense state, which is not ported)."""
+    dec = make_decoder(scfg)
+    dev = t_model.embed.device
+    B, S = batch, dec.stat_dim
+    t_cache = t_model.init_paged_cache(B, num_pages, page_size, max_pages)
+    d_cache = get_drafter(d_model.cfg).init_serve_cache(
+        d_model, B, max_seq=max_seq or max_pages * page_size,
+        num_pages=num_pages, page_size=page_size, max_pages=max_pages)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "t_cache": t_cache, "d_cache": d_cache,
+        "window": zeros((B, scfg.ctx_window), torch.int64),
+        "last": zeros((B,), torch.int64),
+        "last_ctx": zeros((B,), torch.int64),
+        "last_u": zeros((B,), torch.float32),
+        "last_msk": zeros((B,), torch.bool),
+        "last_yd": zeros((B, S), torch.float32),
+        "last_yt": zeros((B, S), torch.float32),
+        "keys": zeros((B,), torch.int64),
+        "strength": torch.ones(B, dtype=torch.float32, device=dev),
+        "n_committed": zeros((B,), torch.int64),
+        "hist": zeros((B, scfg.history_cap), torch.int64),
+        "hist_n": zeros((B,), torch.int64),
+        "step_idx": 0,
+    }
 
 
 class StepOutput(NamedTuple):
@@ -410,6 +453,100 @@ def _fit_caches(state, need: int):
                              v=torch.cat([cache["v"], z], 2))
 
 
+def init_gen_carry(state: Dict[str, Any], n_vec, cap: int,
+                   eos_id: Optional[int]) -> Dict[str, Any]:
+    """The generation loop's carry over a prepared engine state: output
+    buffers (B, cap + 1) whose slot 0 holds the pending committed token
+    (the prefill sample, or the previous call's last token on resume) and
+    whose last column takes clipped writes, per-slot flags and counters,
+    and the host counts ``n_steps`` and ``n_syncs``.  A slot whose target
+    the pending token already meets, or whose pending token is EOS, starts
+    done."""
+    last = state["last"]
+    B, dev = last.shape[0], last.device
+    S = state["last_yd"].shape[-1]
+
+    def buf(first, dtype, extra=()):
+        b = torch.zeros((B, cap + 1) + extra, dtype=dtype, device=dev)
+        b[:, 0] = first
+        return b
+
+    eos0 = last == (-1 if eos_id is None else int(eos_id))
+    n_tok = torch.as_tensor(np.asarray(n_vec), dtype=torch.int64, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    return {
+        "state": state,
+        "toks": buf(last, torch.int64),
+        "fd": buf(0, torch.int8),            # slot 0 is never a draft
+        "us": buf(state["last_u"], torch.float32),
+        "chs": buf(state["last_ctx"], torch.int64),
+        "msk": buf(state["last_msk"], torch.bool),
+        "yd": buf(state["last_yd"], torch.float32, (S,)),
+        "yt": buf(state["last_yt"], torch.float32, (S,)),
+        "lens": torch.ones(B, dtype=torch.int64, device=dev),
+        "eos": eos0,
+        "done": eos0 | (n_tok <= 1),
+        "total": zeros, "acc_total": zeros.clone(),
+        "alive_steps": zeros.clone(),
+        "n_steps": 0, "n_syncs": 0,
+    }
+
+
+def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
+    """Build loop(t_model, d_model, carry, n_tokens, eos_id, step_limit)
+    -> carry: run spec steps until every slot is done or the carry's
+    ``n_steps`` reaches ``step_limit``, committing each step's outputs
+    into the carry's buffers (in place).  Stopping is per slot: slot b is
+    done once ``lens[b] >= n_tokens[b]`` (a (B,) tensor) or it emits
+    ``eos_id``; a done slot is frozen (the step's ``live`` mask) and stops
+    counting toward the AATPS denominators.  The loop reads the done flags
+    on the host once per step (``n_syncs``); a step in which no slot is
+    live never runs.  Each buffer's last column takes the clipped writes
+    (a valid emission past ``cap``)."""
+    step = make_spec_step(tcfg, dcfg, scfg)
+    K1 = scfg.K + 1
+
+    def loop(t_model, d_model, carry, n_tokens, eos_id, step_limit: int):
+        c = dict(carry)
+        cap = c["toks"].shape[1] - 1
+        B, dev = c["lens"].shape[0], c["lens"].device
+        eos_val = -1 if eos_id is None else int(eos_id)
+        rows = torch.arange(B, device=dev)[:, None]
+        idx = torch.arange(K1, device=dev)[None]
+        while c["n_steps"] < step_limit:
+            c["n_syncs"] += 1
+            if bool(c["done"].all()):
+                break
+            live = ~c["done"]
+            c["state"], outp = step(t_model, d_model, c["state"], live=live,
+                                    eos_id=eos_id)
+            pos = c["lens"][:, None] + idx
+            emitted = (idx < outp.out_len[:, None]) & live[:, None]
+            is_eos = emitted & (outp.out_tokens == eos_val)
+            valid = emitted & (pos < cap)
+            pos = torch.where(valid, pos, cap)
+            o_u = torch.cat([outp.u, torch.zeros((B, 1), device=dev)], 1)
+            for name, vals in (("toks", outp.out_tokens),
+                               ("fd", outp.from_draft.to(torch.int8)),
+                               ("us", o_u), ("chs", outp.ctx_hashes),
+                               ("msk", outp.masked), ("yd", outp.y_draft),
+                               ("yt", outp.y_target)):
+                b = c[name]
+                v = valid[..., None] if vals.ndim == 3 else valid
+                b[rows, pos] = torch.where(v, vals, 0).to(b.dtype)
+            c["lens"] = c["lens"] + valid.sum(1)
+            c["eos"] = c["eos"] | is_eos.any(1)
+            alive = live.to(torch.int64)
+            c["done"] = c["done"] | c["eos"] | (c["lens"] >= n_tokens)
+            c["total"] = c["total"] + outp.out_len * alive
+            c["acc_total"] = c["acc_total"] + outp.n_accepted * alive
+            c["alive_steps"] = c["alive_steps"] + alive
+            c["n_steps"] += 1
+        return c
+
+    return loop
+
+
 def generate(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
              prompts, *, n_tokens, key, strength=None,
              sync_every: Optional[int] = None,
@@ -421,7 +558,7 @@ def generate(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
     continue where that call stopped.  Runs on the models' device.
 
     ``sync_every`` is accepted for parity with the reference and checked;
-    this loop reads the done flags after every step either way."""
+    the loop reads the done flags after every step either way."""
     if sync_every is not None and sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     dev = t_model.embed.device
@@ -441,74 +578,67 @@ def generate(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
         _fit_caches(state, int(torch.maximum(
             state["t_cache"]["pos"], state["d_cache"]["pos"]).max())
             + K1 * max_steps + 2)
-    step = make_spec_step(t_model.cfg, d_model.cfg, scfg)
     cap = max_steps + K1 + 1
-    S = state["last_yd"].shape[-1]
-    eos_val = -1 if eos_id is None else int(eos_id)
+    carry = init_gen_carry(state, n_vec, cap, eos_id)
+    carry = make_gen_loop(t_model.cfg, d_model.cfg, scfg)(
+        t_model, d_model, carry, torch.as_tensor(n_vec, device=dev), eos_id,
+        max_steps)
+    denom = max(int(carry["alive_steps"].sum()), 1)
+    state = carry["state"]
 
-    def buf(first, dtype, extra=()):
-        b = torch.zeros((B, cap + 1) + extra, dtype=dtype, device=dev)
-        b[:, 0] = first
-        return b
-
-    toks = buf(state["last"], torch.int64)
-    fd = buf(0, torch.int8)
-    us = buf(state["last_u"], torch.float32)
-    chs = buf(state["last_ctx"], torch.int64)
-    msk = buf(state["last_msk"], torch.bool)
-    yd = buf(state["last_yd"], torch.float32, (S,))
-    yt = buf(state["last_yt"], torch.float32, (S,))
-    n_tok = torch.as_tensor(n_vec, device=dev)
-    lens = torch.ones(B, dtype=torch.int64, device=dev)
-    eos = state["last"] == eos_val
-    done = eos | (n_tok <= 1)
-    total = torch.zeros(B, dtype=torch.int64, device=dev)
-    acc_total = torch.zeros_like(total)
-    alive_steps = torch.zeros_like(total)
-    rows = torch.arange(B, device=dev)[:, None]
-    idx = torch.arange(K1, device=dev)[None]
-    n_steps = n_syncs = 0
-    while n_steps < max_steps:
-        n_syncs += 1
-        if bool(done.all()):
-            break
-        live = ~done
-        state, outp = step(t_model, d_model, state, live=live,
-                           eos_id=eos_id)
-        pos = lens[:, None] + idx
-        emitted = (idx < outp.out_len[:, None]) & live[:, None]
-        is_eos = emitted & (outp.out_tokens == eos_val)
-        valid = emitted & (pos < cap)
-        pos = torch.where(valid, pos, cap)
-        o_u = torch.cat([outp.u, torch.zeros((B, 1), device=dev)], 1)
-        for b, vals in ((toks, outp.out_tokens),
-                        (fd, outp.from_draft.to(torch.int8)),
-                        (us, o_u), (chs, outp.ctx_hashes),
-                        (msk, outp.masked), (yd, outp.y_draft),
-                        (yt, outp.y_target)):
-            v = valid[..., None] if vals.ndim == 3 else valid
-            b[rows, pos] = torch.where(v, vals, 0).to(b.dtype)
-        lens = lens + valid.sum(1)
-        eos = eos | is_eos.any(1)
-        alive = live.to(torch.int64)
-        done = done | eos | (lens >= n_tok)
-        total += outp.out_len * alive
-        acc_total += outp.n_accepted * alive
-        alive_steps += alive
-        n_steps += 1
-    denom = max(int(alive_steps.sum()), 1)
-    dec = make_decoder(scfg)
-
-    def host(t):
-        return t[:, :cap].cpu().numpy()
+    def host(name):
+        return carry[name][:, :cap].cpu().numpy()
 
     return GenerationResult(
-        tokens=host(toks).astype(np.int32), lengths=lens.cpu().numpy(),
-        from_draft=host(fd), u=host(us),
-        ctx_hashes=host(chs).astype(np.uint32), masked=host(msk),
-        aatps=int(acc_total.sum()) / denom,
-        tokens_per_step=int(total.sum()) / denom, n_steps=n_steps,
-        state=state, eos=eos.cpu().numpy(), y_draft=host(yd),
-        y_target=host(yt), stat_scheme=dec.name,
+        tokens=host("toks").astype(np.int32),
+        lengths=carry["lens"].cpu().numpy(), from_draft=host("fd"),
+        u=host("us"), ctx_hashes=host("chs").astype(np.uint32),
+        masked=host("msk"),
+        aatps=int(carry["acc_total"].sum()) / denom,
+        tokens_per_step=int(carry["total"].sum()) / denom,
+        n_steps=carry["n_steps"], state=state,
+        eos=carry["eos"].cpu().numpy(), y_draft=host("yd"),
+        y_target=host("yt"), stat_scheme=make_decoder(scfg).name,
         keys=state["keys"].cpu().numpy().astype(np.uint32),
-        strength=state["strength"].cpu().numpy(), n_syncs=n_syncs)
+        strength=state["strength"].cpu().numpy(), n_syncs=carry["n_syncs"])
+
+
+def serve_requests(t_model: Transformer, d_model: Transformer,
+                   scfg: SpecConfig, requests, *, config,
+                   stats_out: Optional[dict] = None):
+    """Continuous batching: serve a request list through ``config.batch``
+    live slots, admitting queued prompts into freed slots at the loop's
+    sync points (``serve.scheduler``).  ``config`` is a
+    ``serve.config.ServeConfig``.  ``requests``: ``scheduler.Request``s,
+    ``(prompt, n_tokens)`` pairs or ``{"prompt", "n_tokens"}`` dicts,
+    admitted FIFO; ``max_tokens`` / ``max_prompt_len`` default to the
+    maxima over the requests.  ``page_size`` switches the KV caches to the
+    block-paged pool (``num_pages`` pages shared by all slots, prompts
+    admitted in ``prefill_chunk``-token chunks between decode rounds);
+    ``prefix_cache=True`` shares identical full-page prompt prefixes
+    across requests.  Returns ``scheduler.RequestResult``s in uid
+    (submission) order, each equal to a solo ``generate`` of its
+    prompt/key; ``stats_out={}`` receives the scheduler's ``stats()``."""
+    from repro_torch.serve.scheduler import Scheduler, as_request
+
+    config = config.validate()
+    reqs = [as_request(r) for r in requests]
+    if not reqs:
+        return []
+    config = config.resolved(reqs)
+    sched = Scheduler(t_model, d_model, scfg, **config.scheduler_kwargs())
+    sched.submit_many(reqs)
+    results = sched.run()
+    if stats_out is not None:
+        stats_out.update(sched.stats())
+    return results
+
+
+def serve_stream(*args, **kwargs):
+    """The async-iterator surface of the reference (double-buffered
+    ``overlap`` loop, per-token streaming) is not ported (ROADMAP item 9);
+    ``serve_requests(config=ServeConfig(on_token=...))`` streams tokens
+    at sync points."""
+    raise NotImplementedError(
+        "serve_stream: the async streaming surface and overlap=True are not "
+        "ported (ROADMAP item 9); use serve_requests with on_token")

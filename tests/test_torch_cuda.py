@@ -9,7 +9,12 @@ package, so it runs where only PyTorch is installed:
 Tolerances as in test_torch_kernels.py: integers exact, race tokens equal
 outside margin rows (best two scores within 1e-5 relative), tournament
 distributions within rtol=1e-4, atol=1e-7 (another order of float sums
-over up to 256128 entries and 30 rounds)."""
+over up to 256128 entries and 30 rounds).  Paged attention: float32
+within 1e-5 (another order of float sums); bfloat16 within
+ref.paged_attention_tol, per element: two bf16 ulps of the element plus
+two flips of the row's worst score or probability rounding (another sum
+order may round a score, a probability or the output one ulp the other
+way)."""
 import numpy as np
 import pytest
 import torch
@@ -82,7 +87,7 @@ def test_kernels_match_plain_versions(cuda, V):
         assert torch.equal(sk[same], sr[same])
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"spec_verify_wm": 3, "gumbel_argmax": 1,
-                            "tournament_keyed": 1}
+                            "tournament_keyed": 1, "paged_attention": 0}
 
 
 @pytest.mark.gpu
@@ -95,6 +100,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.gumbel_argmax(probs, seeds.cpu())
     with pytest.raises(TypeError):
         ops.tournament_keyed(probs, seeds.int(), seeds, stream=1, m=2)
+    # paged attention: a page size that is no power of two, a page past
+    # the threads' 16 KB in flight, a pool off the 16-byte grid
+    q = torch.zeros((1, 1, 2, 128), device=cuda)
+    table = torch.ones((1, 1), dtype=torch.int64, device=cuda)
+    pos = torch.ones(1, dtype=torch.int64, device=cuda)
+    for ps in (12, 64):
+        pool = torch.zeros((2, ps, 2, 128), device=cuda)
+        with pytest.raises(ValueError):
+            ops.paged_attention(q, pool, pool, table, pos)
+    odd = torch.zeros(2 * 16 * 2 * 128 + 1, device=cuda)[1:].view(
+        2, 16, 2, 128)
+    with pytest.raises(ValueError):
+        ops.paged_attention(q, odd, odd, table, pos)
 
 
 @pytest.mark.gpu
@@ -118,3 +136,56 @@ def test_generate_on_card_matches_cpu(cuda):
         if j is not None:
             assert divergence.decision_margin(*cpu, scfg, prompts[b], rc, b,
                                               j) < MARGIN
+
+
+def _paged_inputs(B, Sq, H, Hkv, hd, ps, max_pages, pos, dtype, dev, seed):
+    """q, shuffled k/v pools and page tables whose live pages cover pos[b]
+    + Sq - 1 positions and whose tails point at the null page; the last
+    row is a FREE slot (all-null table) attending kv 0 only."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    P = B * max_pages + 3
+    q = torch.randn((B, Sq, H, hd), generator=g).to(dev, dtype)
+    k = torch.randn((P, ps, Hkv, hd), generator=g).to(dev, dtype)
+    v = torch.randn((P, ps, Hkv, hd), generator=g).to(dev, dtype)
+    perm = torch.randperm(P - 1, generator=g) + 1
+    table = torch.zeros((B, max_pages), dtype=torch.int64)
+    pos = torch.as_tensor(pos, dtype=torch.int64)
+    for b in range(B - 1):
+        n = -(-(int(pos[b]) + Sq - 1) // ps)
+        table[b, :n] = perm[b * max_pages:b * max_pages + n]
+    pos[B - 1] = 1
+    return q, k, v, table.to(dev), pos.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,H,Hkv,hd,pos", [
+    (4, 5, 4, 2, 64, [17, 40, 3, 0]),          # the TINY pair's GQA
+    (3, 5, 32, 32, 128, [100, 977, 0]),        # target verify
+    (2, 32, 12, 12, 64, [1, 0])])              # a prefill chunk
+def test_paged_attention_matches_plain_version(cuda, dtype, B, Sq, H, Hkv,
+                                               hd, pos):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _paged_inputs(B, Sq, H, Hkv, hd, 16, 64, pos, dtype, cuda,
+                         seed=Sq * H)
+    ops.reset_launches()
+    out = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    want = ref.paged_attention_ref(*args)
+    assert out.dtype == dtype and out.shape == want.shape
+
+    def close(out, want, args):
+        tol = (1e-5 if dtype == torch.float32
+               else ref.paged_attention_tol(*args, want))
+        diff = (out.float() - want.float()).abs()
+        assert bool((diff <= tol).all()), float(diff.max())
+
+    close(out, want, args)
+    # a row with no valid position averages the whole extent, as the
+    # plain version does
+    q, k, v, table, p = args
+    p = p.clone()
+    p[0] = 0
+    args = (q, k, v, table, p)
+    close(ops.paged_attention(*args), ref.paged_attention_ref(*args), args)
