@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure, in this order:
   1. device: the card's name and power limit; build the kernels with nvcc;
   2. every kernel against its plain PyTorch version on the card, at the
      serving shapes (B=4, K=4, m=30, V=32000 and V=256128), with the
@@ -15,20 +15,40 @@ Phases, each fatal on failure:
      element within its rounding bound (which must also catch an
      off-by-one mask and a wrong page); times of kernel, plain version,
      bound and an SDPA yardstick;
+  2c. the four recurrent kernels (wkv, wkv_step, ssd, ssd_step) against
+     their plain versions at the rwkv6-3b and zamba2-1.2b serving shapes,
+     bf16 and fp32 inputs, every output (y and the state) within its
+     rounding bound, which must also see three emulated faults; times of
+     kernel, plain version and bound;
   3. the dense Algorithm 1 slice at full width: LLAMA_7B target and
      LLAMA_68M draft in bf16 (random weights from a seed), B=4, prompt 16,
      48 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
-     the launch counts of that run show it went through the kernels;
+     the launch counts of that run show it went through the kernels (the
+     repeat and fused="off" checks of synthid-inf run INF_CHECK_TOKENS);
   3b. continuous batching at full width: the same pair through
      serve_requests over the paged pool (8 slots, page 16, chunk 32,
      prefix cache), 24 requests submitted at once, gumbel and synthid;
      requests/s, tokens/s, TTFT, gaps, pages, launch counts, a trace;
-     then the same requests through a Scheduler that times its parts
-     (a separate run: its synchronizes stay out of the timed one);
+     then the same requests through a Scheduler that times its parts (a
+     separate run: its synchronizes stay out of the timed one);
+  3c. recurrent drafting at full width: LLAMA_7B with rwkv6-3b (vocab
+     32000) and zamba2-1.2b drafts, bf16, ssm.chunk 128: generate (B=4,
+     prompt 200, 48 tokens; gumbel and synthid for RWKV6, gumbel for
+     Zamba2), paged serve_requests with RWKV6 (16 requests, 8 slots, no
+     prefix cache) and dense serve_requests with Zamba2 (8 requests, 4
+     slots); ms per step, kernels per step, idle share, draft state bytes,
+     launch counts per path;
+  (the traces of phases 3, 3b and 3c are windows of each cell's own load:
+     PROFILE_TOKENS more tokens continuing a finished generate, or
+     TRACE_ROUNDS sync rounds of serving once every slot holds a request
+     and a first request has finished);
   4. the TINY pair in fp32, generate on the CPU (plain versions) against
      generate on the card (kernels);
   4b. the TINY pair in fp32, serve_requests (dense and paged) on the CPU
-     against the card, and served against solo generate on the card.
+     against the card, and served against solo generate on the card;
+  4c. TINY_TARGET with the smoke-size RWKV6 and Zamba2 drafts in fp32:
+     generate and serve_requests (paged RWKV6, dense Zamba2) on the CPU
+     against the card, and served against solo on the card.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -319,10 +339,20 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 SLICE = dict(B=4, prompt=16, n_tokens=48, K=4, temperature=0.7)
+# synthid-inf's repeat and fused="off" runs are cut to this many tokens
+# (held against the first run's prefix: slots are isolated, so a shorter
+# run's tokens are the longer run's first ones) to keep the script inside
+# its time limit; gumbel and synthid check all n_tokens
+INF_CHECK_TOKENS = 16
 DENSE_KERNELS = ("spec_verify_wm", "gumbel_argmax", "tournament_keyed")
 KERNEL_NAMES = DENSE_KERNELS + ("paged_attention",)
+RECURRENT_KERNELS = ("wkv", "wkv_step", "ssd", "ssd_step")
 SCHEMES = ("gumbel", "synthid", "synthid-inf")
-PROFILE_TOKENS = 12          # the traced run is short: tracing is slow
+# a traced generate window: this many tokens continuing the timed run's
+# final state (decode steps at the cell's batch, no prefill inside)
+PROFILE_TOKENS = 12
+# a traced serving window: this many sync rounds at the cell's load
+TRACE_ROUNDS = 3
 
 
 def make_pair():
@@ -368,10 +398,11 @@ def phase_slice(target, draft):
         for k, v in ops.LAUNCHES.items():
             counts[k] += v
         launches = dict(ops.LAUNCHES)
-        r2 = E.generate(target, draft, scfg, prompts, n_tokens=n, key=keys)
+        m = INF_CHECK_TOKENS if wm == "synthid-inf" else n
+        r2 = E.generate(target, draft, scfg, prompts, n_tokens=m, key=keys)
         r_off = E.generate(target, draft,
                            dataclasses.replace(scfg, fused="off"),
-                           prompts, n_tokens=n, key=keys)
+                           prompts, n_tokens=m, key=keys)
         # the last step may commit up to K tokens past the target, as in
         # the reference
         check(bool(((r1.lengths >= n) & (r1.lengths <= n + SLICE["K"])).all()),
@@ -382,9 +413,9 @@ def phase_slice(target, draft):
         check(0.0 <= r1.aatps <= SLICE["K"], f"{wm}: aatps {r1.aatps}")
         check(bool(((r1.y_target >= 0) & (r1.y_target <= 1)).all()),
               f"{wm}: statistics outside [0, 1]")
-        check(bool((r1.tokens == r2.tokens).all()),
+        check(bool((r1.tokens[:, :m] == r2.tokens[:, :m]).all()),
               f"{wm}: two runs with one key differ")
-        check(bool((r1.tokens == r_off.tokens).all()),
+        check(bool((r1.tokens[:, :m] == r_off.tokens[:, :m]).all()),
               f"{wm}: fused tail and fused='off' tail differ")
         results[wm] = dict(
             seconds=secs, n_steps=r1.n_steps, n_syncs=r1.n_syncs,
@@ -393,49 +424,147 @@ def phase_slice(target, draft):
             aatps=r1.aatps, launches=launches,
             profile=profile_generate(lambda: E.generate(
                 target, draft, scfg, prompts, n_tokens=PROFILE_TOKENS,
-                key=keys)))
+                key=keys, state=r1.state)))
         print(f"slice {wm}: " + json.dumps(results[wm]))
     check(all(counts[k] > 0 for k in DENSE_KERNELS),
           f"a kernel of the path was never launched: {counts}")
     return counts, results
 
 
-def profile_generate(run):
-    """One traced run: wall time, device busy time (the summed self time
-    of every kernel on the card), the device's idle share, kernel launches
-    per spec step and the kernels that take the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        res = run()
+class TraceWindow:
+    """A trace of the card from start() to stop(): wall time, device busy
+    time (the union of the intervals of every kernel, copy and fill on the
+    card), the device's idle share, device operations per spec step, host
+    syncs (every operation that waits for the card warns once while the
+    window is open) and the kernels that take the most device time.  The
+    trace is read back from the profiler's raw events: grouping thousands
+    of kernels per step through ``key_averages`` takes far longer than the
+    traced run."""
+
+    def __init__(self):
+        self.prof = None
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    # host syncs: every operation that waits for the card warns once
-    with warnings.catch_warnings(record=True) as caught:
+        self._warn = warnings.catch_warnings(record=True)
+        self._caught = self._warn.__enter__()
         warnings.simplefilter("always")
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
         torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    busy_us = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
-    top = sorted(rows, reverse=True)[:8]
-    ported_us = sum(r[0] for r in rows
-                    if any(f"{k}_kernel" in r[2] for k in KERNEL_NAMES))
-    return dict(
-        wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
-        device_idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
-        n_steps=res.n_steps, kernels_per_step=launches / res.n_steps,
-        ported_kernel_share=ported_us / busy_us if busy_us else 0.0,
-        host_syncs=syncs,
-        top=[dict(name=k[:60], ms=us / 1e3, count=c) for us, c, k in top])
+        self._t = time.perf_counter()
+
+    def stop(self, n_steps: int, **extra):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self._t
+        t_read = time.perf_counter()
+        self.prof.__exit__(None, None, None)
+        self._warn.__exit__(None, None, None)
+        syncs = sum("synchroniz" in str(w.message) for w in self._caught)
+        evs = sorted((e.start_ns(), e.end_ns(), e.name())
+                     for e in self.prof.profiler.kineto_results.events()
+                     if str(e.device_type()).endswith("CUDA")
+                     and e.duration_ns() > 0)
+        self.prof = None
+        busy_ns, edge = 0, None
+        by_name = {}
+        for a, b, name in evs:
+            if edge is None or a >= edge:
+                busy_ns += b - a
+                edge = b
+            elif b > edge:
+                busy_ns += b - edge
+                edge = b
+            tot, cnt = by_name.get(name, (0, 0))
+            by_name[name] = (tot + b - a, cnt + 1)
+
+        def share(kernels):
+            return sum(t for k, (t, _) in by_name.items()
+                       if any(f"{n}_kernel" in k for n in kernels))
+        busy_ms = busy_ns / 1e6
+        top = sorted(((t, c, k) for k, (t, c) in by_name.items()),
+                     reverse=True)[:8]
+        return dict(
+            wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+            device_idle_share=1.0 - busy_ms / (wall * 1e3),
+            n_steps=n_steps, ms_per_step=wall * 1e3 / max(n_steps, 1),
+            device_ms_per_step=busy_ms / max(n_steps, 1),
+            kernels_per_step=len(evs) / max(n_steps, 1),
+            ported_kernel_share=(share(KERNEL_NAMES + RECURRENT_KERNELS)
+                                 / busy_ns if busy_ns else 0.0),
+            recurrent_kernel_ms=share(RECURRENT_KERNELS) / 1e6,
+            host_syncs=syncs, readback_s=time.perf_counter() - t_read,
+            top=[dict(name=k[:60], ms=t / 1e6, count=c) for t, c, k in top],
+            **extra)
+
+
+def profile_generate(run):
+    """One traced call of ``run`` (a generate, whose result has n_steps)
+    through a TraceWindow."""
+    win = TraceWindow()
+    win.start()
+    try:
+        res = run()
+    except BaseException:
+        win.stop(0)
+        raise
+    return win.stop(res.n_steps)
+
+
+class _WindowClosed(Exception):
+    pass
+
+
+def traced_serve(target, draft, scfg, reqs, cfg):
+    """A window of serving at the cell's own load: the requests go through
+    a Scheduler whose trace opens at the first sync round in which every
+    slot holds a request and a first request has finished (the steady
+    state: finished slots refilled from the queue), and closes TRACE_ROUNDS
+    rounds later (or when the queue drains), which cuts the run.  Adds the
+    rounds traced and the mean number of decoding slots per round."""
+    from repro_torch.serve import scheduler as S
+    win = TraceWindow()
+    st = dict(out=None, steps0=0, rounds=0, decoding=0)
+
+    class WindowScheduler(S.Scheduler):
+        def _run_chunk(self):
+            if win.prof is not None and st["rounds"] == TRACE_ROUNDS:
+                close(self)
+                raise _WindowClosed
+            if (win.prof is None and st["out"] is None and self.results
+                    and all(sl.phase != S.FREE for sl in self.slots)):
+                st["steps0"] = self.carry["n_steps"]
+                win.start()
+            if win.prof is not None:
+                st["rounds"] += 1
+                st["decoding"] += sum(sl.phase == S.DECODING
+                                      for sl in self.slots)
+            return super()._run_chunk()
+
+    def close(sched):
+        st["out"] = win.stop(
+            sched.carry["n_steps"] - st["steps0"], rounds=st["rounds"],
+            decoding_slots_mean=st["decoding"] / max(st["rounds"], 1),
+            slots=len(sched.slots))
+
+    sched = WindowScheduler(target, draft, scfg, **cfg.resolved(
+        [S.as_request(r) for r in reqs]).scheduler_kwargs())
+    sched.submit_many(reqs)
+    try:
+        sched.run()
+    except _WindowClosed:
+        pass
+    finally:
+        if win.prof is not None:
+            close(sched)
+    check(st["out"] is not None and st["rounds"] > 0,
+          "serving trace: no round with every slot holding a request after "
+          "a first request finished")
+    return st["out"]
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +715,184 @@ def phase_paged_kernel():
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: the recurrent kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (case, kernel, shape): rwkv6-3b's decode step at 8 slots, an admission
+# chunk, a prompt with a ragged tail and a batch; zamba2-1.2b's decode
+# step at 4 slots and prompts longer than the chunk (one exact multiple,
+# one ragged) and a batch, at ssm.chunk 128
+REC_CASES = [
+    ("wkv_step rwkv6-3b", "wkv_step", dict(B=8, H=40, hd=64)),
+    ("wkv admission chunk", "wkv", dict(B=1, S=32, H=40, hd=64)),
+    ("wkv prompt", "wkv", dict(B=1, S=300, H=40, hd=64)),
+    ("wkv batch", "wkv", dict(B=4, S=200, H=40, hd=64)),
+    ("ssd_step zamba2-1.2b", "ssd_step", dict(B=4, H=64, hd=64, N=64)),
+    ("ssd prompt 256", "ssd", dict(B=1, S=256, H=64, hd=64, N=64)),
+    ("ssd prompt 300", "ssd", dict(B=1, S=300, H=64, hd=64, N=64)),
+    ("ssd batch", "ssd", dict(B=4, S=200, H=64, hd=64, N=64)),
+]
+REC_CHUNK = 128
+FAULT_FACTOR = 10     # a fault must move an output this many tolerances
+
+
+def rec_inputs(kernel, shape, dtype, seed):
+    """Inputs at a kernel's serving shape, drawn as the models make them:
+    r, k, v ~ N(0, 1) (projections of normalised hiddens), decays w =
+    exp(-exp(N(-2, 1))) in (0, 1), bonus u ~ N(0, 0.25), a prior state
+    ~ N(0, 0.01); la = -softplus(N(0, 1)), dtx = softplus(N(0, 1))·N(0, 1),
+    B, C ~ N(0, 1).  The model-type inputs (r, k, v, u; dtx, B, C) in
+    ``dtype``, the rest float32."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def n(*sh, std=1.0, mean=0.0):
+        return torch.randn(sh, generator=g) * std + mean
+
+    B = shape["B"]
+    if kernel.startswith("wkv"):
+        H, hd = shape["H"], shape["hd"]
+        lead = (B, shape["S"], H, hd) if kernel == "wkv" else (B, H, hd)
+        r, k, v = n(*lead), n(*lead), n(*lead)
+        w = torch.exp(-torch.exp(n(*lead, mean=-2.0)))
+        u = n(H, hd, std=0.5)
+        s0 = n(B, H, hd, hd, std=0.1)
+        return tuple(x.to(DEV, dtype) for x in (r, k, v)) + (
+            w.to(DEV), u.to(DEV, dtype), s0.to(DEV))
+    H, hd, N = shape["H"], shape["hd"], shape["N"]
+    lead = (B, shape["S"]) if kernel == "ssd" else (B,)
+    la = -F.softplus(n(*lead, H))
+    dtx = F.softplus(n(*lead, H, 1)) * n(*lead, H, hd)
+    Bf, Cf = n(*lead, N), n(*lead, N)
+    h0 = n(B, H, hd, N, std=0.1)
+    return (la.to(DEV),) + tuple(x.to(DEV, dtype) for x in (dtx, Bf, Cf)) \
+        + (h0.to(DEV),)
+
+
+def rec_functions(kernel):
+    """(the kernel's wrapper, its plain version, its tolerance) as
+    functions of the inputs."""
+    import functools
+    from repro_torch.kernels import ops, ref
+    if kernel == "wkv_step":
+        return ops.wkv_step, ref.wkv_step_ref, ref.wkv_tol
+    if kernel == "wkv":
+        return ops.wkv, ref.wkv_ref, ref.wkv_tol
+    if kernel == "ssd_step":
+        return ops.ssd_step, ref.ssd_step_ref, ref.ssd_tol
+    return (functools.partial(ops.ssd, chunk=REC_CHUNK),
+            functools.partial(ref.ssd_chunked_ref, chunk=REC_CHUNK),
+            functools.partial(ref.ssd_tol, chunk=REC_CHUNK))
+
+
+def rec_faults(kernel, args):
+    """Inputs that emulate three faults of the kernel: for WKV a dropped
+    bonus u, the decay applied one step late (w shifted by one timestep;
+    for the step kernel w = 1) and a wrong head stride (k read from the
+    neighbouring head); for SSD the decay one step late (la shifted; for
+    the step kernel la = 0), a wrong head stride (dtx of the neighbouring
+    head) and B and C swapped."""
+    import torch
+    if kernel.startswith("wkv"):
+        r, k, v, w, u, s0 = args
+        if kernel == "wkv":
+            late = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], 1)
+        else:
+            late = torch.ones_like(w)
+        return {"dropped_u": (r, k, v, w, torch.zeros_like(u), s0),
+                "decay_late": (r, k, v, late, u, s0),
+                "head_stride": (r, torch.roll(k, 1, dims=-2), v, w, u, s0)}
+    la, dtx, Bf, Cf, h0 = args
+    if kernel == "ssd":
+        late = torch.cat([torch.zeros_like(la[:, :1]), la[:, :-1]], 1)
+    else:
+        late = torch.zeros_like(la)
+    return {"decay_late": (late, dtx, Bf, Cf, h0),
+            "head_stride": (la, torch.roll(dtx, 1, dims=-2), Bf, Cf, h0),
+            "b_c_swapped": (la, dtx, Cf, Bf, h0)}
+
+
+def rec_bound(kernel, shape, el):
+    """Bytes: every input read once, y and the state written once.  Float
+    operations: what the recurrence itself needs per real token and head,
+    not what the kernel's algorithm does.  WKV: y_j = Σ_i r_i s_ij +
+    v_j Σ_i r_i u_i k_i and s'_ij = w_i s_ij + k_i v_j, 5 per state element
+    plus 5 per value column; SSD: h' = exp(la) h + dtx ⊗ B and y = h'·C,
+    5 per state element plus the exp (the chunked scan's C·Bᵀ tiles and
+    its padded last chunk are not counted)."""
+    B = shape["B"]
+    S = shape.get("S", 1)
+    if kernel.startswith("wkv"):
+        H, hd = shape["H"], shape["hd"]
+        tok = B * S * H * hd
+        nbytes = tok * (3 * el + 4 + 4) + H * hd * el + 2 * 4 * B * H * hd ** 2
+        return bound_ms(nbytes, 5 * tok * (hd + 1))
+    H, hd, N = shape["H"], shape["hd"], shape["N"]
+    nbytes = (B * S * H * (4 + hd * el + 4 * hd) + 2 * B * S * N * el
+              + 2 * 4 * B * H * hd * N)
+    return bound_ms(nbytes, B * S * H * (5 * hd * N + 1))
+
+
+def phase_recurrent_kernels():
+    """wkv_step, wkv, ssd_step and ssd against their plain versions at the
+    serving shapes of rwkv6-3b and zamba2-1.2b, with float32 and bfloat16
+    inputs.  Every output (y and the state) must lie within its tolerance
+    (ref.wkv_tol / ref.ssd_tol: twice γ_D times the output's envelope, the
+    plain version run on absolute values), and each of three emulated
+    faults must exceed it by FAULT_FACTOR.  The kernel's, the plain
+    version's and the bound's times; no single PyTorch call computes
+    these recurrences, so there is no library yardstick."""
+    import torch
+    from repro_torch.kernels import ops
+    record = []
+    for name, kernel, shape in REC_CASES:
+        fn, plain, tolf = rec_functions(kernel)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{name} {str(dtype)[6:]}"
+            args = rec_inputs(kernel, shape, dtype, seed=len(record) + 1)
+            ops.reset_launches()
+            got = fn(*args)
+            torch.cuda.synchronize()
+            check(ops.LAUNCHES[kernel] == 1,
+                  f"{tag}: {ops.LAUNCHES[kernel]} launches, not 1")
+            want = plain(*args)
+            tols = tolf(*args)
+            ratio, errs = 0.0, []
+            for out, w, tol in zip(got, want, tols):
+                check(out.shape == w.shape and out.dtype == torch.float32,
+                      f"{tag}: output {tuple(out.shape)} {out.dtype}")
+                check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+                diff = (out - w).abs()
+                errs.append(float(diff.max()))
+                ratio = max(ratio, float((diff / tol).max()))
+            err = max(errs)
+            check(ratio <= 1, f"{tag}: max abs err {err}, {ratio} times its "
+                  "tolerance")
+            faults = {}
+            for fault, fargs in rec_faults(kernel, args).items():
+                bad = fn(*fargs)
+                faults[fault + "_over_tol"] = max(
+                    float(((o - w).abs() / tol).max())
+                    for o, w, tol in zip(bad, want, tols))
+            torch.cuda.synchronize()
+            check(min(faults.values()) > FAULT_FACTOR,
+                  f"{tag}: the tolerance misses a fault: {faults}")
+            times = timings(f"{kernel}_kernel", lambda: fn(*args),
+                            lambda: plain(*args))
+            bnd, by = rec_bound(kernel, shape,
+                                torch.finfo(dtype).bits // 8)
+            record.append(dict(case=tag, max_abs_err=err, err_over_tol=ratio,
+                               y_err=errs[0], state_err=errs[1],
+                               tol_median=float(tols[0].median()), **faults,
+                               **times, library_ms=None, bound_ms=bnd,
+                               bound_by=by))
+    for r in record:
+        print("kernel-check " + json.dumps(r))
+    return record
+
+
+# ---------------------------------------------------------------------------
 # Phase 3b: continuous batching over the paged pool at full width
 # ---------------------------------------------------------------------------
 
@@ -680,7 +987,6 @@ def phase_serve(target, draft):
     same requests then go once more through a Scheduler that times its
     parts, for the breakdown and the FIFO and admit-order checks (the
     admission logic does not depend on the scheme)."""
-    import types
     import numpy as np
     import torch
     from repro_torch.configs import LLAMA_7B
@@ -767,24 +1073,315 @@ def phase_serve(target, draft):
                                 for a, b in zip(res, again)))
             del again, sched
         results[wm]["pool_gib"] = pool / 2**30
-
-        def traced(scfg=scfg):
-            st = {}
-            E.serve_requests(target, draft, scfg, reqs[:8:2], config=cfg,
-                             stats_out=st)
-            return types.SimpleNamespace(n_steps=int(st["spec_steps"]))
-
-        results[wm]["profile"] = profile_generate(traced)
+        results[wm]["profile"] = traced_serve(target, draft, scfg, reqs, cfg)
         print(f"serve {wm}: " + json.dumps(results[wm]))
         del res
-    check(all(v > 0 for v in counts.values()),
+    check(all(counts[k] > 0 for k in KERNEL_NAMES),
           f"a kernel of the paged path was never launched: {counts}")
     return counts, results
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: recurrent drafting at full width
+# ---------------------------------------------------------------------------
+
+REC_SLICE = dict(B=4, prompt=200, n_tokens=48, K=4, temperature=0.7,
+                 chunk=128)
+REC_SERVE = dict(batch=8, page_size=PAGE_SIZE, prefill_chunk=32,
+                 sync_every=4, n_requests=16, prompt=(16, 256),
+                 n_tokens=(16, 64))
+REC_DENSE_SERVE = dict(batch=4, sync_every=4, n_requests=8)
+REC_STATE_KEYS = ("wkv", "att_shift", "ffn_shift", "conv", "ssm")
+
+
+def recurrent_drafts():
+    """The slice's drafts, derived from the copied configs: rwkv6-3b with
+    the target's vocab (32000; draft and target share a vocabulary, every
+    other width kept) and zamba2-1.2b as it stands (vocab 32000), both with
+    ssm.chunk = 128 (the reference's optimised variant, which puts the
+    recurrent kernels on the path)."""
+    import dataclasses
+    from repro_torch.configs import LLAMA_7B, RWKV6_3B, ZAMBA2_1_2B
+    out = {}
+    for name, cfg in (("rwkv6", RWKV6_3B), ("zamba2", ZAMBA2_1_2B)):
+        over = dict(ssm=dataclasses.replace(cfg.ssm,
+                                            chunk=REC_SLICE["chunk"]))
+        if cfg.vocab != LLAMA_7B.vocab:
+            over["vocab"] = LLAMA_7B.vocab
+        out[name] = dataclasses.replace(cfg, **over)
+        print(f"draft {cfg.name}: ssm.chunk {cfg.ssm.chunk} -> "
+              f"{REC_SLICE['chunk']}" + (f", vocab {cfg.vocab} -> "
+                                         f"{LLAMA_7B.vocab}"
+                                         if "vocab" in over else ""))
+    return out
+
+
+def state_bytes(cache, batch: int) -> int:
+    """Bytes of one slot's recurrent draft state (the rows that
+    checkpoints copy and the freeze restores)."""
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in REC_STATE_KEYS if k in cache) // batch
+
+
+def draft_logits_check(draft, prompts):
+    """Random bf16 weights at full depth: the logits after a prefill and
+    after three decode steps must be finite; returns their largest |.|."""
+    import torch
+    logits, cache = draft.prefill(torch.as_tensor(prompts, device=DEV),
+                                  prompts.shape[1] + 8)
+    peaks = [float(logits.float().abs().max())]
+    tok = logits[:, -1].argmax(-1)
+    for _ in range(3):
+        logits, cache = draft.decode_step(tok, cache)
+        peaks.append(float(logits.float().abs().max()))
+        tok = logits.argmax(-1)
+    check(all(p == p and p != float("inf") for p in peaks),
+          f"{draft.cfg.name}: non-finite logits {peaks}")
+    print(f"{draft.cfg.name}: logits finite after prefill and 3 steps, "
+          f"max |logit| {peaks}")
+    return peaks
+
+
+def run_counted(fn):
+    """Run fn with every launch count at 0 before and read just after:
+    -> (fn's result, seconds, the launch counts of that run)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, dict(ops.LAUNCHES)
+
+
+def phase_recurrent(target):
+    """LLAMA_7B with the rwkv6-3b and the zamba2-1.2b drafts in bf16 (random
+    weights from seed 2): generate (B=4, prompt 200, 48 tokens; gumbel and
+    synthid for RWKV6, gumbel for Zamba2), paged serve_requests with the
+    RWKV6 draft (16 requests, 8 slots, no prefix cache: a recurrent draft's
+    state must see the whole prompt) and dense serve_requests with the
+    Zamba2 draft (8 requests, 4 slots: a hybrid draft has no chunked
+    admission).  Returns the launch counts by path and the results; the
+    recurrent kernels must have run on their paths."""
+    import torch
+    from repro_torch.configs import LLAMA_7B
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    drafts = recurrent_drafts()
+    g = torch.Generator(device="cpu").manual_seed(13)
+    prompts = torch.randint(1, LLAMA_7B.vocab, (REC_SLICE["B"],
+                                                REC_SLICE["prompt"]),
+                            generator=g).numpy()
+    keys = [0x1234, 0xDEADBEEF, 7, 2**31 + 5]
+    n, K = REC_SLICE["n_tokens"], REC_SLICE["K"]
+    by_path, results = {}, {}
+    for name, schemes in (("rwkv6", ("gumbel", "synthid")),
+                          ("zamba2", ("gumbel",))):
+        t0 = time.perf_counter()
+        draft = init_params(drafts[name], seed=2, dtype=torch.bfloat16,
+                            device=DEV)
+        torch.cuda.synchronize()
+        print(f"{name}: draft weights made in {time.perf_counter() - t0:.1f}"
+              f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              "allocated")
+        peaks = draft_logits_check(draft, prompts[:2])
+        for wm in schemes:
+            scfg = E.SpecConfig(K=K, watermark=wm,
+                                temperature=REC_SLICE["temperature"])
+            E.generate(target, draft, scfg, prompts[:, :8], n_tokens=6,
+                       key=keys)                               # warm-up
+            r, secs, launches = run_counted(lambda: E.generate(
+                target, draft, scfg, prompts, n_tokens=n, key=keys))
+            path = f"generate {name} {wm}"
+            by_path[path] = launches
+            check(bool(((r.lengths >= n) & (r.lengths <= n + K)).all()),
+                  f"{path}: lengths {r.lengths}")
+            check(bool(((r.tokens[:, :n] >= 0)
+                        & (r.tokens[:, :n] < LLAMA_7B.vocab)).all()),
+                  f"{path}: token out of range")
+            check(0.0 <= r.aatps <= K, f"{path}: aatps {r.aatps}")
+            d_cache = r.state["d_cache"]
+            check(all(bool(torch.isfinite(d_cache[k].float()).all())
+                      for k in REC_STATE_KEYS if k in d_cache),
+                  f"{path}: non-finite draft state")
+            results[path] = dict(
+                seconds=secs, n_steps=r.n_steps,
+                ms_per_step=secs / r.n_steps * 1e3,
+                tokens_per_s=float(r.lengths.sum()) / secs, aatps=r.aatps,
+                draft_state_bytes_per_slot=state_bytes(d_cache, len(keys)),
+                draft_logit_peaks=peaks, launches=launches,
+                profile=profile_generate(lambda: E.generate(
+                    target, draft, scfg, prompts, n_tokens=PROFILE_TOKENS,
+                    key=keys, state=r.state)))
+            print(f"{path}: " + json.dumps(results[path]))
+        scfg = E.SpecConfig(K=K, watermark="gumbel",
+                            temperature=REC_SLICE["temperature"])
+        if name == "rwkv6":
+            c = REC_SERVE
+            reqs = serve_workload(21, c["n_requests"], c["prompt"],
+                                  c["n_tokens"], LLAMA_7B.vocab, 64)
+            base = serve_config(reqs, **{k: c[k] for k in (
+                "batch", "page_size", "prefill_chunk", "sync_every")})
+            cfg = ServeConfig(batch=base.batch, key=base.key,
+                              page_size=base.page_size,
+                              num_pages=base.num_pages,
+                              prefill_chunk=base.prefill_chunk,
+                              sync_every=base.sync_every, prefix_cache=False)
+            path = "serve_requests rwkv6 paged"
+        else:
+            c = REC_DENSE_SERVE
+            reqs = serve_workload(23, c["n_requests"], REC_SERVE["prompt"],
+                                  REC_SERVE["n_tokens"], LLAMA_7B.vocab, 64)
+            cfg = ServeConfig(batch=c["batch"], key=0xC0FFEE,
+                              sync_every=c["sync_every"])
+            path = "serve_requests zamba2 dense"
+        t0 = time.perf_counter()
+        E.serve_requests(target, draft, scfg, reqs[:2], config=cfg)
+        warm_s = time.perf_counter() - t0
+        stats = {}
+        res, secs, launches = run_counted(lambda: E.serve_requests(
+            target, draft, scfg, reqs, config=cfg, stats_out=stats))
+        by_path[path] = launches
+        check(len(res) == len(reqs), f"{path}: {len(res)} results")
+        for r, (p, nt) in zip(res, reqs):
+            check(nt <= r.length <= nt + K,
+                  f"{path}: uid {r.uid} length {r.length}, target {nt}")
+            check(bool(((r.tokens >= 0) & (r.tokens < LLAMA_7B.vocab)).all()),
+                  f"{path}: token out of range")
+        n_steps = int(stats["spec_steps"])
+        n_tok = int(sum(r.length for r in res))
+        results[path] = dict(
+            seconds=secs, requests_per_s=len(res) / secs,
+            tokens_per_s=n_tok / secs, tokens=n_tok,
+            ttft_mean_s=stats["ttft_mean_s"], gap_p95_s=stats["gap_p95_s"],
+            n_steps=n_steps, ms_per_step=secs / n_steps * 1e3,
+            prefill_chunks=stats.get("prefill_chunks"),
+            aatps=stats["aatps"], launches=launches,
+            max_prompt=max(len(p) for p, _ in reqs), warmup_s=warm_s,
+            profile=traced_serve(target, draft, scfg, reqs, cfg))
+        print(f"{path}: " + json.dumps(results[path]))
+        del draft
+        torch.cuda.empty_cache()
+    need = {"generate rwkv6 gumbel": ("wkv", "wkv_step"),
+            "serve_requests rwkv6 paged": ("wkv", "wkv_step"),
+            "generate zamba2 gumbel": ("ssd", "ssd_step"),
+            "serve_requests zamba2 dense": ("ssd_step",)}
+    for path, kernels in need.items():
+        check(all(by_path[path][k] > 0 for k in kernels),
+              f"{path}: a recurrent kernel never launched: {by_path[path]}")
+    return by_path, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: recurrent drafts, the CPU against the card, TINY target in fp32
+# ---------------------------------------------------------------------------
+
+
+def tiny_recurrent_drafts():
+    """The reference's smoke sizes of the two drafts (configs.base.reduced:
+    2 layers, d_model 256, ssm head_dim 32, d_state 16, a shared block every
+    2 layers), with TINY_TARGET's vocab and ssm.chunk 8, so the prompts
+    exceed the chunk (the ssd kernel and its per-timestep path both run)."""
+    import dataclasses
+    from repro_torch.configs import RWKV6_3B, TINY_TARGET, ZAMBA2_1_2B
+    small = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                 d_ff=512, vocab=TINY_TARGET.vocab, head_dim=64)
+    return {name: dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", **small,
+        hybrid_attn_every=2 if cfg.arch_type == "hybrid" else
+        cfg.hybrid_attn_every,
+        ssm=dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=8))
+        for name, cfg in (("rwkv6", RWKV6_3B), ("zamba2", ZAMBA2_1_2B))}
+
+
+def phase_tiny_recurrent():
+    """TINY_TARGET with each smoke draft in fp32: generate on the CPU
+    (plain versions) against the card (kernels), serve_requests (paged
+    for RWKV6, dense for Zamba2) on the CPU against the card, and on the
+    card each served request against its solo generate; margin rows are
+    counted.  Returns (margin rows, rows compared, launch counts)."""
+    import torch
+    from repro_torch.configs import TINY_TARGET
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import divergence
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(17)
+    prompts = torch.randint(1, TINY_TARGET.vocab, (4, 20), generator=g).numpy()
+    reqs = serve_workload(19, 8, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
+    margin_rows = n_rows = 0
+    counts = {}
+    for name, dcfg in tiny_recurrent_drafts().items():
+        cpu = [init_params(TINY_TARGET, seed=3, device="cpu"),
+               init_params(dcfg, seed=5, device="cpu")]
+        gpu = [init_params(TINY_TARGET, seed=3, device="cpu").to(DEV),
+               init_params(dcfg, seed=5, device="cpu").to(DEV)]
+        for wm in ("gumbel", "synthid"):
+            scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
+            rc = E.generate(*cpu, scfg, prompts, n_tokens=40, key=99)
+            rg, _, launches = run_counted(lambda: E.generate(
+                *gpu, scfg, prompts, n_tokens=40, key=99))
+            counts[f"tiny generate {name} {wm}"] = launches
+            for b in range(prompts.shape[0]):
+                j = divergence.first_divergence(rc, rg, b)
+                n_rows += 1
+                if j is None:
+                    continue
+                marg = divergence.decision_margin(*cpu, scfg, prompts[b], rc,
+                                                  b, j)
+                check(marg < MARGIN_TOL, f"tiny {name} {wm}: row {b} parts "
+                      f"at {j} with margin {marg}")
+                margin_rows += 1
+        scfg = E.SpecConfig(K=4, watermark="gumbel", temperature=0.7)
+        mode = dict(page_size=4, num_pages=200, prefill_chunk=8) \
+            if name == "rwkv6" else {}
+        cfg = ServeConfig(batch=4, key=99, sync_every=3, **mode)
+        sc = E.serve_requests(*cpu, scfg, reqs, config=cfg)
+        sg, _, launches = run_counted(lambda: E.serve_requests(
+            *gpu, scfg, reqs, config=cfg))
+        counts[f"tiny serve_requests {name}"] = launches
+        for a, b, (p, nt) in zip(sc, sg, reqs):
+            tag = f"tiny serve {name} uid {a.uid}"
+            margin_rows += compare_requests(a.as_generation_result(),
+                                            b.as_generation_result(), cpu,
+                                            scfg, p, tag)
+            solo = E.generate(*gpu, scfg, p[None], n_tokens=nt, key=99)
+            margin_rows += compare_requests(b.as_generation_result(), solo,
+                                            gpu, scfg, p, tag + " vs solo")
+            n_rows += 2
+    for path, kernels in (("tiny generate rwkv6 gumbel", ("wkv", "wkv_step")),
+                          ("tiny generate zamba2 gumbel", ("ssd", "ssd_step")),
+                          ("tiny serve_requests rwkv6", ("wkv", "wkv_step")),
+                          ("tiny serve_requests zamba2", ("ssd_step",))):
+        check(all(counts[path][k] > 0 for k in kernels),
+              f"{path}: a recurrent kernel never launched: {counts[path]}")
+    print(f"tiny recurrent: margin rows {margin_rows} of {n_rows}")
+    return margin_rows, n_rows, counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: serve_requests on the CPU against the card, TINY pair in fp32
 # ---------------------------------------------------------------------------
+
+
+def compare_requests(a, b, models, scfg, prompt, tag):
+    """Two batch-1 GenerationResults of one request: 0 when equal
+    (context hashes and coins included), 1 when they part at a decision
+    whose margin is under MARGIN_TOL (a counted margin row); else fail."""
+    from repro_torch.serve import divergence
+    j = divergence.first_divergence(a, b, 0)
+    if j is None:
+        n = int(a.lengths[0])
+        check(bool((a.ctx_hashes[:, :n] == b.ctx_hashes[:, :n]).all()
+                   and (a.u[:, :n] == b.u[:, :n]).all()),
+              f"{tag}: context hashes or coins differ")
+        return 0
+    marg = divergence.decision_margin(*models, scfg, prompt, a, 0, j)
+    check(marg < MARGIN_TOL, f"{tag}: parts at {j} with margin {marg}")
+    return 1
 
 
 def phase_tiny_serve():
@@ -795,7 +1392,6 @@ def phase_tiny_serve():
     import torch
     from repro_torch.configs import TINY_DRAFT, TINY_TARGET
     from repro_torch.models.model import init_params
-    from repro_torch.serve import divergence
     from repro_torch.serve import engine as E
     from repro_torch.serve.config import ServeConfig
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -808,19 +1404,7 @@ def phase_tiny_serve():
              "paged": dict(page_size=4, num_pages=120, prefill_chunk=8,
                            prefix_cache=True)}
     margin_rows = n_rows = 0
-
-    def compare(a, b, models, scfg, prompt, tag):
-        j = divergence.first_divergence(a, b, 0)
-        if j is None:
-            n = int(a.lengths[0])
-            check(bool((a.ctx_hashes[:, :n] == b.ctx_hashes[:, :n]).all()
-                       and (a.u[:, :n] == b.u[:, :n]).all()),
-                  f"{tag}: context hashes or coins differ")
-            return 0
-        marg = divergence.decision_margin(*models, scfg, prompt, a, 0, j)
-        check(marg < MARGIN_TOL, f"{tag}: parts at {j} with margin {marg}")
-        return 1
-
+    compare = compare_requests
     for wm in SERVE_SCHEMES:
         scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
         for mode, kw in modes.items():
@@ -889,6 +1473,14 @@ KERNELS = [
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:81",
      "paged_attention target verify bfloat16"),
+    ("wkv", "src/repro_torch/kernels/csrc/wkv.cu",
+     "src/repro/kernels/wkv.py:52", "wkv admission chunk bfloat16"),
+    ("wkv_step", "src/repro_torch/kernels/csrc/wkv_step.cu",
+     "src/repro/kernels/wkv.py:112", "wkv_step rwkv6-3b bfloat16"),
+    ("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+     "src/repro/kernels/ssd.py:64", "ssd batch float32"),
+    ("ssd_step", "src/repro_torch/kernels/csrc/ssd_step.cu",
+     "src/repro/kernels/ssd.py:121", "ssd_step zamba2-1.2b float32"),
 ]
 
 
@@ -932,34 +1524,46 @@ def main() -> int:
 
     record = timed("2 kernels", phase_kernels)
     record += timed("2b paged kernel", phase_paged_kernel)
+    record += timed("2c recurrent kernels", phase_recurrent_kernels)
     target, draft = make_pair()
     counts, slice_results = timed("3 generate", phase_slice, target, draft)
     serve_counts, serve_results = timed("3b serve_requests", phase_serve,
                                         target, draft)
-    del target, draft
+    del draft
+    torch.cuda.empty_cache()
+    rec_counts, rec_results = timed("3c recurrent drafts", phase_recurrent,
+                                    target)
+    del target
     torch.cuda.empty_cache()
     tiny_margin_rows = timed("4 tiny generate", phase_tiny)
     tiny_serve_margin_rows = timed("4b tiny serve_requests",
                                    phase_tiny_serve)
+    tiny_rec_margin_rows, tiny_rec_rows, tiny_rec_counts = timed(
+        "4c tiny recurrent drafts", phase_tiny_recurrent)
 
     by_case = {r["case"]: r for r in record}
+    paths = {"generate": counts, "serve_requests": serve_counts,
+             **rec_counts}
     kernels = []
     for name, source, replaces, case in KERNELS:
         r = by_case[case]
-        cases = [x for x in record if x["case"].startswith(name)]
+        cases = [x for x in record if x["case"].split()[0] == name]
+        by_path = {path: c[name] for path, c in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name] + serve_counts[name],
-            launches_by_path={"generate": counts[name],
-                              "serve_requests": serve_counts[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(x["max_abs_err"] for x in cases),
+            max_err_over_tol=max(x.get("err_over_tol", 0.0) for x in cases),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     print(json.dumps({"slice": slice_results, "serve": serve_results,
-                      "launches": {"generate": counts,
-                                   "serve_requests": serve_counts},
+                      "recurrent": rec_results,
+                      "launches": paths,
                       "tiny_margin_rows": tiny_margin_rows,
                       "tiny_serve_margin_rows": tiny_serve_margin_rows,
+                      "tiny_recurrent_margin_rows": tiny_rec_margin_rows,
+                      "tiny_recurrent_rows": tiny_rec_rows,
+                      "tiny_recurrent_launches": tiny_rec_counts,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,24 @@
 """Model configuration — a copy of ``repro.configs.base.ModelConfig``
-with the fields the dense path reads, kept here so the port imports
-nothing of the JAX package.  Later slices add the fields of the families
-they port."""
+with the fields the ported families read (dense, and the recurrent ``ssm``
+and ``hybrid`` families), kept here so the port imports nothing of the JAX
+package.  Later slices add the fields of the families they port."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"       # "mamba2" | "rwkv6"
+    d_state: int = 64
+    d_conv: int = 4            # causal conv width (mamba2)
+    head_dim: int = 64
+    expand: int = 2            # d_inner = expand * d_model (mamba2)
+    # sequence-mode recurrence chunk: 0 = per-timestep recurrence; >0 =
+    # Mamba2 sequences longer than this run the chunked SSD scan in chunks
+    # of this length (on the card the ``ssd`` kernel)
+    chunk: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,10 +32,14 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0          # 0 -> d_model // n_heads
-    act: str = "silu"          # silu | gelu
+    act: str = "silu"          # silu | sqrelu | gelu
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     rms_eps: float = 1e-5
+    # --- SSM / hybrid ---
+    ssm: Optional[SSMConfig] = None
+    # hybrid: number of ssm layers between shared attention applications
+    hybrid_attn_every: int = 6
     window: int = 0            # 0 = full causal attention
     source: str = ""
 

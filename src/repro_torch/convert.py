@@ -3,11 +3,14 @@
 The tree is the reference's ``init_params`` output (or a checkpoint of
 it) with every leaf turned into a numpy array, e.g.
 ``jax.tree.map(np.asarray, params)``.  Leaves keep their einsum layouts
-(``repro/models/transformer.py`` and ``layers.py``): ``embed`` (V, d),
-``head`` (d, V), ``ln_out`` (d,), and layer-stacked ``blocks`` with
-``ln_attn``/``ln_ffn`` (L, d), ``attn.{wq,wk,wv}`` (L, d, H, hd),
-``attn.wo`` (L, H, hd, d) and ``ffn.{w_in,w_gate}`` (L, d, ff),
-``ffn.w_out`` (L, ff, d).
+and names.  Dense (``repro/models/transformer.py`` and ``layers.py``):
+``embed`` (V, d), ``head`` (d, V), ``ln_out`` (d,), and layer-stacked
+``blocks`` with ``ln_attn``/``ln_ffn`` (L, d), ``attn.{wq,wk,wv}`` (L, d,
+H, hd), ``attn.wo`` (L, H, hd, d) and ``ffn.{w_in,w_gate}`` (L, d, ff),
+``ffn.w_out`` (L, ff, d).  Recurrent (``repro/models/ssm.py``): the same
+``embed``/``head``/``ln_out``, flat layer-stacked ``blocks.*`` (RWKV6 or
+Mamba2 leaves) and, for the hybrid, ``shared`` with ``ln_attn`` (n_sites,
+d), ``ln_ffn``, ``attn.*`` and the gelu ``ffn.{w_in, w_out}``.
 """
 from __future__ import annotations
 
@@ -17,28 +20,35 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.model import Model, init_params
 
 
-def _flat_blocks(blocks: Mapping[str, Any]):
-    """blocks.{ln_attn, ln_ffn, attn.*, ffn.*} -> {leaf name: array}."""
-    out = {"ln_attn": blocks["ln_attn"], "ln_ffn": blocks["ln_ffn"]}
-    for group in ("attn", "ffn"):
-        out.update(blocks[group])
+def _flat(group: Mapping[str, Any]):
+    """{ln_*, attn: {...}, ffn: {...}} -> {leaf name: array}."""
+    out = {}
+    for name, leaf in group.items():
+        if isinstance(leaf, Mapping):
+            out.update(leaf)
+        else:
+            out[name] = leaf
     return out
 
 
 def from_jax_tree(tree: Mapping[str, Any], cfg: ModelConfig, *,
                   dtype: torch.dtype = torch.float32,
-                  device="cuda") -> Transformer:
-    """A ``Transformer`` holding the tree's weights (cast to ``dtype``)."""
-    model = Transformer(cfg, dtype=dtype, device=device)
+                  device="cuda") -> Model:
+    """A ``Transformer`` or ``RecurrentLM`` holding the tree's weights
+    (cast to ``dtype``)."""
+    model = init_params(cfg, dtype=dtype, device=device)
     if cfg.tie_embeddings or "head" not in tree:
         raise NotImplementedError("tied embeddings are not ported")
     leaves = {"embed": tree["embed"], "head": tree["head"],
               "ln_out": tree["ln_out"]}
     leaves.update({f"blocks.{k}": v
-                   for k, v in _flat_blocks(tree["blocks"]).items()})
+                   for k, v in _flat(tree["blocks"]).items()})
+    if "shared" in tree:
+        leaves.update({f"shared.{k}": v
+                       for k, v in _flat(tree["shared"]).items()})
     params = dict(model.named_parameters())
     if set(leaves) != set(params):
         raise ValueError(f"tree leaves {sorted(leaves)} do not match the "

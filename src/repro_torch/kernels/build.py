@@ -31,6 +31,11 @@ SIGNATURES = {
     "tournament_keyed_launch": [_P, _P, _P, _I, _I, _I, _U, _I, _P, _P, _P],
     "spec_verify_wm_launch": [_P] * 13 + [_I] * 7 + [_U] * 4 + [_P],
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "wkv_step_launch": [_P] * 8 + [_I] * 4 + [_P],
+    "wkv_launch": [_P] * 8 + [_I] * 5 + [_P],
+    "ssd_step_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "ssd_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "ssd_smem_bytes": [_I] * 3,
 }
 
 

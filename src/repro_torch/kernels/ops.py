@@ -33,8 +33,16 @@ SMEM_ROW_MAX = 200 * 1024
 # flight, four 16-byte vectors each (PA_THREADS · PA_INFLIGHT · 16)
 PAGED_PAGE_BYTES = 256 * 4 * 16
 
+# the recurrent kernels' head sizes (one instantiation each for the WKV
+# kernels, whose threads keep a state column in registers) and the shared
+# memory a block may opt into on sm_90
+WKV_HEAD_DIMS = (32, 64)
+SMEM_BLOCK_MAX = 227 * 1024
+
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0, "gumbel_argmax": 0,
-                            "tournament_keyed": 0, "paged_attention": 0}
+                            "tournament_keyed": 0, "paged_attention": 0,
+                            "wkv": 0, "wkv_step": 0, "ssd": 0,
+                            "ssd_step": 0}
 
 
 def reset_launches() -> None:
@@ -214,3 +222,140 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
         int(dtype == torch.bfloat16), 1.0 / math.sqrt(hd), _stream(q))
     _launched("paged_attention", rc)
     return out
+
+
+def _rec_type(t: torch.Tensor, name: str) -> torch.dtype:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 "
+                        "or bfloat16 inputs")
+    return t.dtype
+
+
+def _wkv_args(name, r, k, v, w, u, s0):
+    """Checked, contiguous WKV inputs: r, k, v and u of one type (float32
+    or bfloat16), w and the state float32, hd in WKV_HEAD_DIMS."""
+    shape = tuple(r.shape)
+    H, hd = shape[-2:]
+    dtype = _rec_type(r, name)
+    if hd not in WKV_HEAD_DIMS:
+        raise ValueError(f"{name}: head size {hd}; the kernel takes "
+                         f"{WKV_HEAD_DIMS}")
+    B = shape[0]
+    return (_arg(r, dtype, shape, "r"), _arg(k, dtype, shape, "k"),
+            _arg(v, dtype, shape, "v"), _arg(w, torch.float32, shape, "w"),
+            _arg(u, dtype, (H, hd), "u"),
+            _arg(s0, torch.float32, (B, H, hd, hd), "s0"), dtype)
+
+
+def wkv_step(r, k, v, w, u, s0):
+    """One RWKV6 WKV decode step, state in / state out: r, k, v, w (B, H,
+    hd), u (H, hd), s0 (B, H, hd, hd) (key i, value j) -> (y (B, H, hd)
+    f32, the new state (B, H, hd, hd) f32, a new buffer).  The kernel takes
+    r, k, v, u in one type, float32 or bfloat16, and w and s0 in float32."""
+    if not _on_cuda(r, k, v, w, u, s0):
+        return ref.wkv_step_ref(r, k, v, w, u, s0)
+    r, k, v, w, u, s0, dtype = _wkv_args("wkv_step", r, k, v, w, u, s0)
+    B, H, hd = r.shape
+    y = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    s1 = torch.empty_like(s0)
+    rc = build.load().wkv_step_launch(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(s0), _ptr(y),
+        _ptr(s1), B, H, hd, int(dtype == torch.bfloat16), _stream(r))
+    _launched("wkv_step", rc)
+    return y, s1
+
+
+def wkv(r, k, v, w, u, s0):
+    """The WKV recurrence over a sequence: r, k, v, w (B, S, H, hd), u (H,
+    hd), s0 (B, H, hd, hd) -> (y (B, S, H, hd) f32, the final state f32).
+    Types as ``wkv_step``."""
+    if not _on_cuda(r, k, v, w, u, s0):
+        return ref.wkv_ref(r, k, v, w, u, s0)
+    r, k, v, w, u, s0, dtype = _wkv_args("wkv", r, k, v, w, u, s0)
+    B, S, H, hd = r.shape
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    s1 = torch.empty_like(s0)
+    rc = build.load().wkv_launch(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(s0), _ptr(y),
+        _ptr(s1), B, S, H, hd, int(dtype == torch.bfloat16), _stream(r))
+    _launched("wkv", rc)
+    return y, s1
+
+
+def _ssd_args(name, la, dtx, Bf, Cf, h0):
+    """Checked, contiguous SSD inputs: la and the state float32, dtx, B and
+    C of one type (float32 or bfloat16)."""
+    lead = tuple(la.shape)              # (B, H) or (B, S, H)
+    hd, N = dtx.shape[-1], Bf.shape[-1]
+    dtype = _rec_type(dtx, name)
+    return (_arg(la, torch.float32, lead, "la"),
+            _arg(dtx, dtype, lead + (hd,), "dtx"),
+            _arg(Bf, dtype, lead[:-1] + (N,), "B"),
+            _arg(Cf, dtype, lead[:-1] + (N,), "C"),
+            _arg(h0, torch.float32, (lead[0], lead[-1], hd, N), "h0"), dtype)
+
+
+def ssd_step(la, dtx, Bf, Cf, h0):
+    """One Mamba2 SSD decode step, state in / state out: la (B, H), dtx (B,
+    H, hd), B and C (B, N), h0 (B, H, hd, N) -> (y (B, H, hd) f32, the new
+    state f32, a new buffer).  The kernel takes la and h0 in float32 and
+    dtx, B, C in one type, float32 or bfloat16."""
+    if not _on_cuda(la, dtx, Bf, Cf, h0):
+        return ref.ssd_step_ref(la, dtx, Bf, Cf, h0)
+    la, dtx, Bf, Cf, h0, dtype = _ssd_args("ssd_step", la, dtx, Bf, Cf, h0)
+    B, H, hd = dtx.shape
+    N = Bf.shape[-1]
+    y = torch.empty((B, H, hd), dtype=torch.float32, device=la.device)
+    h1 = torch.empty_like(h0)
+    rc = build.load().ssd_step_launch(
+        _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
+        _ptr(h1), B, H, hd, N, int(dtype == torch.bfloat16), _stream(la))
+    _launched("ssd_step", rc)
+    return y, h1
+
+
+def ssd_scan(la, dtx, Bf, Cf, h0):
+    """The per-timestep Mamba2 recurrence over a sequence: la (B, S, H),
+    dtx (B, S, H, hd), B and C (B, S, N), h0 (B, H, hd, N) -> (y (B, S, H,
+    hd) f32, the final state f32).  A CPU tensor takes ``ref.ssd_ref``; on
+    the card the ``ssd_step`` kernel runs once per timestep (one launch
+    each, counted under ``ssd_step``)."""
+    if not _on_cuda(la, dtx, Bf, Cf, h0):
+        return ref.ssd_ref(la, dtx, Bf, Cf, h0)
+    steps = [a.transpose(0, 1).contiguous() for a in (la, dtx, Bf, Cf)]
+    h, ys = h0, []
+    for t in range(la.shape[1]):
+        y, h = ssd_step(*(a[t] for a in steps), h)
+        ys.append(y)
+    return torch.stack(ys, 1), h
+
+
+def ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
+    """The chunked Mamba2 SSD scan: la (B, S, H), dtx (B, S, H, hd), B and
+    C (B, S, N), h0 (B, H, hd, N), in chunks of min(chunk, S) tokens, the
+    last identity-padded -> (y (B, S, H, hd) f32, the final state f32).
+    Types as ``ssd_step``; one chunk's tiles must fit a block's shared
+    memory (as ``csrc/ssd.cu``'s ``ssd_smem_bytes`` counts it, at most
+    SMEM_BLOCK_MAX)."""
+    if chunk < 1:
+        raise ValueError(f"ssd: chunk {chunk}; the chunked scan needs >= 1")
+    if not _on_cuda(la, dtx, Bf, Cf, h0):
+        return ref.ssd_chunked_ref(la, dtx, Bf, Cf, h0, chunk)
+    la, dtx, Bf, Cf, h0, dtype = _ssd_args("ssd", la, dtx, Bf, Cf, h0)
+    B, S, H, hd = dtx.shape
+    N = Bf.shape[-1]
+    Lc = min(chunk, S)
+    lib = build.load()
+    smem = lib.ssd_smem_bytes(hd, N, Lc)
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"ssd: a chunk of {Lc} at hd={hd}, N={N} needs "
+                         f"{smem} bytes of shared memory, over the block's "
+                         f"{SMEM_BLOCK_MAX}")
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=la.device)
+    h1 = torch.empty_like(h0)
+    rc = lib.ssd_launch(
+        _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
+        _ptr(h1), B, S, H, hd, N, Lc, int(dtype == torch.bfloat16),
+        _stream(la))
+    _launched("ssd", rc)
+    return y, h1

@@ -184,3 +184,199 @@ def paged_attention_tol(q, k_pool, v_pool, page_table, pos, want, *,
              + out.abs().amax(-1, keepdim=True))
     per_flip = (dp * reach).amax(-1).transpose(1, 2)         # (B, Sq, H)
     return 2 * bf16_ulp(want) + flips * per_flip[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Recurrent scans and steps (reference kernels/wkv.py, kernels/ssd.py and
+# the fused-step mirrors of kernels/ref.py).  Every body casts its inputs
+# to float32 first, as the TPU kernels do; the state is always float32.
+# ---------------------------------------------------------------------------
+
+
+def wkv_ref(r, k, v, w, u, s0):
+    """The per-timestep RWKV6 WKV recurrence (``wkv.wkv_ref``), the plain
+    version of ``csrc/wkv.cu``:
+
+        y_t = r_t · (S + u ⊙ k_t v_tᵀ);   S ← w_t ⊙_rows S + k_t v_tᵀ
+
+    r, k, v, w (B, S, H, hd); u (H, hd); s0 (B, H, hd, hd) (key i, value
+    j).  Returns (y (B, S, H, hd) f32, final state (B, H, hd, hd) f32)."""
+    u = u.float()
+    s = s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = (a[:, t].float() for a in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r_t,
+                               s + u[..., :, None] * kv))
+        s = w_t[..., :, None] * s + kv
+    return torch.stack(ys, 1), s
+
+
+def wkv_step_ref(r, k, v, w, u, s0):
+    """One WKV step (``ref.wkv_step_ref``), the plain version of
+    ``csrc/wkv_step.cu``: multiply then sum over the key axis, the
+    reference's op order.  r, k, v, w (B, H, hd); u (H, hd); s0 (B, H, hd,
+    hd).  Returns (y (B, H, hd) f32, the new state (B, H, hd, hd) f32)."""
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    u = u.float()
+    s = s0.float()
+    kv = k[..., :, None] * v[..., None, :]
+    y = ((s + u[..., :, None] * kv) * r[..., :, None]).sum(-2)
+    return y, w[..., :, None] * s + kv
+
+
+def ssd_ref(la, dtx, Bf, Cf, h0):
+    """The per-timestep Mamba2 recurrence (``ssd.ssd_ref``; the scan of
+    ``models/ssm.py`` at ``chunk == 0`` or S <= chunk):
+
+        h_t = exp(la_t) h_{t-1} + dtx_t ⊗ B_t;   y_t = h_t · C_t
+
+    la (B, S, H) log-decay (<= 0); dtx (B, S, H, hd); Bf, Cf (B, S, N);
+    h0 (B, H, hd, N).  Returns (y (B, S, H, hd) f32, final state f32).  On
+    the card this path is the ``ssd_step`` kernel once per timestep."""
+    h = h0.float()
+    ys = []
+    for t in range(la.shape[1]):
+        la_t, dtx_t, B_t, C_t = (a[:, t].float() for a in (la, dtx, Bf, Cf))
+        h = torch.exp(la_t)[..., None, None] * h \
+            + dtx_t[..., None] * B_t[:, None, None, :]
+        ys.append(torch.einsum("bhdn,bn->bhd", h, C_t))
+    return torch.stack(ys, 1), h
+
+
+def ssd_step_ref(la, dtx, Bf, Cf, h0):
+    """One SSD step (``ref.ssd_step_ref``), the plain version of
+    ``csrc/ssd_step.cu``: multiply then sum over N.  la (B, H); dtx (B, H,
+    hd); Bf, Cf (B, N); h0 (B, H, hd, N).  Returns (y (B, H, hd) f32, the
+    new state (B, H, hd, N) f32)."""
+    la, dtx, Bf, Cf = (a.float() for a in (la, dtx, Bf, Cf))
+    h = torch.exp(la)[..., None, None] * h0.float() \
+        + dtx[..., None] * Bf[:, None, None, :]
+    return (h * Cf[:, None, None, :]).sum(-1), h
+
+
+def ssd_chunked_scan(la, dtx, Bf, Cf, h0, Lc: int):
+    """Blocked (SSD) evaluation of the Mamba2 recurrence
+    (``models/ssm.py::_ssd_chunked_scan``) over S divisible by Lc: per
+    chunk, the masked decay tile exp(cum_i - cum_j) times C·Bᵀ for the
+    intra-chunk part, exp(cum_i)·(h·C_i) from the carried state, then
+    h <- exp(tot)·h + Σ_j exp(tot - cum_j) dtx_j ⊗ B_j.  Shapes as
+    ``ssd_ref``; returns (y (B, S, H, hd), final state)."""
+    B, S, H = la.shape
+    hd, N = dtx.shape[-1], Bf.shape[-1]
+    nc = S // Lc
+    la = la.reshape(B, nc, Lc, H)
+    dtx = dtx.reshape(B, nc, Lc, H, hd)
+    Bc = Bf.reshape(B, nc, Lc, N)
+    Cc = Cf.reshape(B, nc, Lc, N)
+    cum = torch.cumsum(la, dim=2)                          # (B, nc, Lc, H)
+    tot = cum[:, :, -1]                                    # (B, nc, H)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, nc, i, j, H)
+    mask = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
+                                 device=la.device))
+    w = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    y_intra = torch.einsum("bcijh,bcij,bcjhd->bcihd", w, cb, dtx)
+    wj = torch.exp(tot[:, :, None] - cum)
+    X = torch.einsum("bcjh,bcjhd,bcjn->bchdn", wj, dtx, Bc)
+    h = h0.float()
+    y_inter = []
+    for c in range(nc):
+        yh = torch.einsum("bhdn,bin->bihd", h, Cc[:, c])
+        y_inter.append(torch.exp(cum[:, c])[..., None] * yh)
+        h = torch.exp(tot[:, c])[..., None, None] * h + X[:, c]
+    y = (y_intra + torch.stack(y_inter, 1)).reshape(B, S, H, hd)
+    return y, h
+
+
+def ssd_chunked_ref(la, dtx, Bf, Cf, h0, chunk: int):
+    """The plain version of ``csrc/ssd.cu`` (what ``ssd.ssd_kernel``
+    computes): chunks of min(chunk, S) tokens, the last one identity-padded
+    (la = 0, dtx = B = C = 0 leave the state as it is and add nothing).
+    Returns (y (B, S, H, hd) f32, final state (B, H, hd, N) f32)."""
+    S = la.shape[1]
+    Lc = min(chunk, S)
+    pad = (-S) % Lc
+    la, dtx, Bf, Cf = (a.float() for a in (la, dtx, Bf, Cf))
+    if pad:
+        la = torch.nn.functional.pad(la, (0, 0, 0, pad))
+        dtx = torch.nn.functional.pad(dtx, (0, 0, 0, 0, 0, pad))
+        Bf = torch.nn.functional.pad(Bf, (0, 0, 0, pad))
+        Cf = torch.nn.functional.pad(Cf, (0, 0, 0, pad))
+    y, h = ssd_chunked_scan(la, dtx, Bf, Cf, h0.float(), Lc)
+    return y[:, :S], h
+
+
+# ---------------------------------------------------------------------------
+# Tolerances of the recurrent kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+UNIT_ROUNDOFF = 2.0 ** -24     # float32
+
+
+def gamma(n: float) -> float:
+    """γ_n = n·u / (1 − n·u): the relative error bound of a float32
+    result that passes through n roundings (a sum of n + 1 terms, or a
+    chain of n products and sums)."""
+    nu = n * UNIT_ROUNDOFF
+    return nu / (1.0 - nu)
+
+
+def _tol(env, n: float, extra: float = 0.0):
+    """Two computations of one quantity, each within (γ_n + extra)·env of
+    the exact value, differ by at most twice that (plus the smallest
+    normal float32, for outputs whose envelope underflows)."""
+    return 2.0 * (gamma(n) + extra) * env + torch.finfo(torch.float32).tiny
+
+
+def wkv_tol(r, k, v, w, u, s0):
+    """Per-element bounds (tol_y, tol_state) on |kernel − plain version|
+    for ``wkv`` (r..s0 with a time axis S) or ``wkv_step`` (without one).
+    Each output of the recurrence is a sum of products of the inputs with
+    nonnegative decays, so the plain version run on |r|, |k|, |v|, |u|,
+    |s0| gives its envelope Σ|term|, and a float32 evaluation in any order
+    is within γ_D·envelope of the exact value, with D the longest chain of
+    roundings to that output: 2 per timestep through the state, hd + 3 to
+    a y.  The decay w is an input (not recomputed), so it adds none."""
+    if r.dim() == 3:
+        y_env, s_env = wkv_step_ref(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                                    s0.abs())
+        steps = 1
+    else:
+        y_env, s_env = wkv_ref(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                               s0.abs())
+        steps = r.shape[1]
+    hd = r.shape[-1]
+    return (_tol(y_env, 2 * steps + hd + 3), _tol(s_env, 2 * steps + 1))
+
+
+def ssd_tol(la, dtx, Bf, Cf, h0, chunk: int = 0):
+    """Per-element bounds (tol_y, tol_state) on |kernel − plain version|
+    for ``ssd_step`` (la (B, H), no time axis), the per-timestep scan
+    (``chunk == 0``) or ``ssd`` (chunked).  The envelope is the plain
+    version on |dtx|, |B|, |C|, |h0| (decays are positive).  D counts the
+    roundings on the longest chain: per timestep 4 for exp(la) (float32
+    exp is within 2 ulps) and 2 for the update, N + 2 to a y; per chunk
+    N + Lc + hd + 12.  The chunked form also takes exp of cumulative sums,
+    which another summation order moves by up to (γ_Lc + u)·Σ|la| of a
+    chunk: a relative error of each decay factor, once per chunk."""
+    if la.dim() == 2:
+        y_env, h_env = ssd_step_ref(la, dtx.abs(), Bf.abs(), Cf.abs(),
+                                    h0.abs())
+        N = Bf.shape[-1]
+        return _tol(y_env, N + 8), _tol(h_env, 6)
+    S, hd, N = la.shape[1], dtx.shape[-1], Bf.shape[-1]
+    if not chunk:
+        y_env, h_env = ssd_ref(la, dtx.abs(), Bf.abs(), Cf.abs(), h0.abs())
+        return _tol(y_env, 6 * S + N + 2), _tol(h_env, 6 * S)
+    y_env, h_env = ssd_chunked_ref(la, dtx.abs(), Bf.abs(), Cf.abs(),
+                                   h0.abs(), chunk)
+    Lc = min(chunk, S)
+    nc = -(-S // Lc)
+    pad = nc * Lc - S
+    lsum = torch.nn.functional.pad(la.float().abs(), (0, 0, 0, pad)) \
+        .reshape(la.shape[0], nc, Lc, -1).sum(2).max()
+    extra = nc * (gamma(Lc) + UNIT_ROUNDOFF) * float(lsum)
+    D = nc * (N + Lc + hd + 12)
+    return _tol(y_env, D, extra), _tol(h_env, D, extra)

@@ -1,15 +1,55 @@
-"""The transformer drafter — the port of the transformer branch of
-``repro.serve.drafter``: what the engine's speculative step and the
-scheduler's paged admission need from a KV-cached draft model."""
+"""Drafters — the port of ``repro.serve.drafter``: what the engine's
+speculative step and the scheduler's paged admission need from a draft
+model, per family.
+
+  1. ``prefill``     — build the draft cache from the prompt;
+  2. ``propose``     — one draft decode step;
+  3. ``checkpoint``  — snapshot the per-step state that rollback needs;
+  4. ``commit``      — the K-th-token catch-up step, then the per-row
+                       rollback to the accepted length;
+  5. ``slot_extend`` — one batch-1 admission chunk of the paged scheduler.
+
+Attention drafters keep a position-gated KV cache (rollback is pos-only,
+nothing to checkpoint) and page it through the shared pool.  Recurrent
+drafters (RWKV6 / Mamba2 backbones) carry O(1) state per slot with no
+position gate: rollback selects per-step checkpoints, and the state lives
+in dense (L, B, ...) rows outside the pool.  Hybrid (shared-attention)
+drafters roll back the same way but serve in dense mode only: their
+attention sites have no chunked extend.  ``get_drafter(cfg)`` picks the
+family by ``arch_type``.
+"""
 from __future__ import annotations
+
+from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.model import Model
+
+# recurrent cache entries that need per-step checkpoints for rollback
+# (position-gated k/v never roll back: pos-only commit suffices)
+RECURRENT_KEYS = ("wkv", "att_shift", "ffn_shift", "conv", "ssm")
 
 
-def paged_slot_extend(model: Transformer, toks, cache, b: int,
-                      start_pos: int, new_pos: int):
+def rollback_checkpoints(cache, checkpoints: Optional[Dict[str, List]],
+                         pos0, out_len):
+    """Commit per row: ``pos`` advances to pos0 + out_len, and every
+    recurrent state takes the checkpoint after ``out_len`` consumed tokens
+    (``checkpoints[k][n]``: the (L, B, ...) state after n + 1 tokens; row b
+    selects entry out_len[b] - 1 along the batch axis 1)."""
+    cache = dict(cache, pos=pos0 + out_len)
+    for k, chks in (checkpoints or {}).items():
+        pick = out_len - 1
+        sel = chks[0]
+        for n in range(1, len(chks)):
+            m = (pick == n).reshape((1, -1) + (1,) * (sel.dim() - 2))
+            sel = torch.where(m, chks[n], sel)
+        cache[k] = sel.to(cache[k].dtype)
+    return cache
+
+
+def paged_slot_extend(model: Model, toks, cache, b: int, start_pos: int,
+                      new_pos: int):
     """One prompt chunk toks (ck,) through a paged cache for slot ``b``
     (the target and attention drafters alike): the batch-1 sub-cache is the
     whole pool plus slot ``b``'s table row, so the writes land only in that
@@ -36,10 +76,10 @@ class TransformerDrafter:
     paged_cache = True
     chunked_extend = True
 
-    def prefill(self, model: Transformer, tokens, max_seq: int):
+    def prefill(self, model: Model, tokens, max_seq: int):
         return model.prefill(tokens, max_seq)
 
-    def propose(self, model: Transformer, token, cache):
+    def propose(self, model: Model, token, cache):
         """One draft decode step -> (logits (B, V), cache)."""
         return model.decode_step(token, cache)
 
@@ -47,33 +87,97 @@ class TransformerDrafter:
         """KV drafters need no per-step snapshot."""
         return None
 
-    def commit(self, model: Transformer, last_draft_tok, cache, checkpoints,
+    def commit(self, model: Model, last_draft_tok, cache, checkpoints,
                pos0, out_len):
         """Re-feed the K-th draft token (propose consumed [last, d_1 ..
-        d_{K-1}]), then roll the position back to the committed length."""
+        d_{K-1}], so one catch-up step gives the all-accepted path its full
+        prefix), then roll the position back to the committed length."""
         del checkpoints
         _, cache = model.decode_step(last_draft_tok, cache)
         return dict(cache, pos=pos0 + out_len)
 
-    def init_serve_cache(self, model: Transformer, batch: int, *,
-                         max_seq: int, num_pages: int, page_size: int,
-                         max_pages: int):
+    def init_serve_cache(self, model: Model, batch: int, *, max_seq: int,
+                         num_pages: int, page_size: int, max_pages: int):
         """The drafter's zero serving cache for paged scheduling: an
-        attention draft joins the page pool (``max_seq`` sizes only the
-        dense state of recurrent drafts, which are not ported)."""
+        attention draft joins the page pool."""
         del max_seq
         return model.init_paged_cache(batch, num_pages, page_size, max_pages)
 
-    def slot_extend(self, model: Transformer, toks, cache, b: int,
+    def slot_extend(self, model: Model, toks, cache, b: int,
                     start_pos: int, new_pos: int):
-        """One admission chunk for slot ``b`` -> (logits (1, ck, V),
-        cache)."""
+        """One admission chunk toks (ck,) for slot ``b`` through its pages
+        -> (logits (1, ck, V), cache)."""
         return paged_slot_extend(model, toks, cache, b, start_pos, new_pos)
 
 
+class RecurrentDrafter(TransformerDrafter):
+    """RWKV6 / Mamba2 backbones: per-step state checkpoints, dense state
+    rows outside the pool, chunked admission through ``extend_step``."""
+    name = "recurrent"
+    state_keys = RECURRENT_KEYS
+    paged_cache = False
+    chunked_extend = True
+
+    def checkpoint(self, cache):
+        """The recurrent entries of the cache (references: every step makes
+        new state tensors)."""
+        return {k: cache[k] for k in self.state_keys if k in cache}
+
+    def commit(self, model: Model, last_draft_tok, cache, checkpoints,
+               pos0, out_len):
+        """The catch-up step, then every row takes the checkpoint after its
+        committed length (``pos`` moves as for a KV drafter)."""
+        _, cache = model.decode_step(last_draft_tok, cache)
+        steps = list(checkpoints) + [self.checkpoint(cache)]
+        chks = {k: [c[k] for c in steps] for k in steps[0]}
+        return rollback_checkpoints(cache, chks, pos0, out_len)
+
+    def init_serve_cache(self, model: Model, batch: int, *, max_seq: int,
+                         num_pages: int, page_size: int, max_pages: int):
+        """Dense (L, B, ...) state rows outside the pool (``max_seq`` sizes
+        the rows that hold k/v), with a per-slot ``pos``."""
+        del num_pages, page_size, max_pages
+        return model.init_cache(batch, max_seq)
+
+    def slot_extend(self, model: Model, toks, cache, b: int,
+                    start_pos: int, new_pos: int):
+        """``extend_step`` on a batch-1 slice of the state rows with the
+        padded tail identity-masked (``n_valid``); the rows are written
+        back in place.  A re-admitted slot's rows still hold the previous
+        request's state, which no position gate hides, so the first chunk
+        (``start_pos == 0``) starts from zeros, as a solo prefill does."""
+        keys = [k for k in self.state_keys if k in cache]
+        sub = {k: (torch.zeros_like(cache[k][:, b:b + 1]) if start_pos == 0
+                   else cache[k][:, b:b + 1]) for k in keys}
+        sub["pos"] = torch.full((1,), start_pos, dtype=torch.int64,
+                                device=cache["pos"].device)
+        logits, sub = model.extend_step(toks[None], sub,
+                                        n_valid=new_pos - start_pos)
+        for k in keys:
+            cache[k][:, b] = sub[k][:, 0].to(cache[k].dtype)
+        pos = cache["pos"].clone()
+        pos[b] = new_pos
+        return logits, dict(cache, pos=pos)
+
+
+class HybridDrafter(RecurrentDrafter):
+    """Zamba2: recurrent state plus shared-attention k/v (position-gated,
+    so rollback still selects only the recurrent checkpoints); no chunked
+    extend for the attention sites, so dense-mode drafting only."""
+    name = "hybrid"
+    chunked_extend = False
+
+
+_DRAFTERS = {"dense": TransformerDrafter(), "ssm": RecurrentDrafter(),
+             "hybrid": HybridDrafter()}
+
+
 def get_drafter(cfg) -> TransformerDrafter:
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"no drafter ported for arch_type={cfg.arch_type!r} (the "
-            "recurrent and hybrid drafters are not ported)")
-    return TransformerDrafter()
+    """The drafter of ``cfg.arch_type``; an unknown family raises (a
+    defaulted drafter would commit with the wrong rollback)."""
+    d = _DRAFTERS.get(cfg.arch_type)
+    if d is None:
+        raise ValueError(
+            f"no drafter registered for arch_type={cfg.arch_type!r} "
+            f"(registered: {sorted(_DRAFTERS)})")
+    return d

@@ -1,5 +1,5 @@
 """Batched speculative decoding with watermarking (Algorithm 1) — the port
-of the dense path of ``repro.serve.engine``.
+of ``repro.serve.engine`` on one device.
 
 One spec step: K watermarked draft samples from the draft model, one
 target ``extend_step`` over the K+1 fed tokens, the ζ^R acceptance coins,
@@ -15,6 +15,12 @@ never runs, so ``n_steps`` equals the reference's.  ``generate`` runs one
 loop over a prefilled batch; ``serve_requests`` runs it in rounds under
 the continuous-batching ``serve.scheduler.Scheduler``.  The KV caches are
 written in place, so a resumed ``state`` is consumed.
+
+Drafts and targets may be recurrent (``models.ssm.RecurrentLM``): the
+drafter (``serve.drafter``) checkpoints and rolls back a recurrent draft,
+and a recurrent target runs its K+1 fed tokens one decode step at a time
+with state checkpoints (``_run_target``).  Recurrent state has no position
+gate, so the ``live`` freeze restores a frozen slot's state rows.
 """
 from __future__ import annotations
 
@@ -30,8 +36,9 @@ from repro_torch.core.watermark.base import (Decoder, FusedTail, get_decoder,
                                              race_draft_sampler)
 from repro_torch.kernels import ops as KOPS
 from repro_torch.kernels import ref
-from repro_torch.models.transformer import Transformer
-from repro_torch.serve.drafter import get_drafter
+from repro_torch.models.model import Model, is_recurrent
+from repro_torch.serve.drafter import (RECURRENT_KEYS, get_drafter,
+                                       rollback_checkpoints)
 
 EPS = 1e-30
 
@@ -144,7 +151,7 @@ def prompt_window(prompts, c: int):
     return window
 
 
-def init_state(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
+def init_state(t_model: Model, d_model: Model, scfg: SpecConfig,
                prompts: torch.Tensor, max_seq: int, key,
                strength=None) -> Dict[str, Any]:
     """Prefill both models on prompts (B, S0) and sample the first token.
@@ -171,7 +178,7 @@ def init_state(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
             "step_idx": 0}
 
 
-def init_empty_paged_state(t_model: Transformer, d_model: Transformer,
+def init_empty_paged_state(t_model: Model, d_model: Model,
                            scfg: SpecConfig, batch: int, *, num_pages: int,
                            page_size: int, max_pages: int,
                            max_seq: Optional[int] = None) -> Dict[str, Any]:
@@ -179,9 +186,18 @@ def init_empty_paged_state(t_model: Transformer, d_model: Transformer,
     every slot has an all-null page table and pos 0, so a frozen slot's
     writes land in the null page and the position gate hides them.  The
     scheduler's chunked admission fills slots in place, and its finalize
-    samples the first token as ``init_state`` does.  Both caches page
-    (the transformer drafter joins the pool; ``max_seq`` would size a
-    recurrent draft's dense state, which is not ported)."""
+    samples the first token as ``init_state`` does.  The target cache
+    always pages; the draft cache follows its drafter: an attention draft
+    joins the pool, a recurrent draft keeps dense state rows outside it
+    (sized by ``max_seq``, by default the pool's logical extent
+    ``max_pages * page_size``).  A recurrent target raises."""
+    if is_recurrent(t_model.cfg):
+        raise ValueError(
+            f"paged serving needs an attention *target*: arch_type="
+            f"{t_model.cfg.arch_type!r} is recurrent (no KV to page).  "
+            "Recurrent models are first-class *drafters* — their O(1) "
+            "state lives outside the paged pool (serve.drafter) — pass one "
+            "as the draft model.")
     dec = make_decoder(scfg)
     dev = t_model.embed.device
     B, S = batch, dec.stat_dim
@@ -241,11 +257,30 @@ def _standard_coins(keys, step_idx: int, K: int):
     return torch.stack(rows)
 
 
+def _run_target(t_model: Model, fed, t_cache):
+    """Run the K+1 fed tokens (B, K+1) through the target -> (logits (B,
+    K+1, V), cache, checkpoints).  An attention target runs one batched
+    ``extend_step`` (checkpoints None); a recurrent one decodes the tokens
+    one at a time, keeping its state after each ({key: [K+1 states]})."""
+    if not is_recurrent(t_model.cfg):
+        logits, cache = t_model.extend_step(fed, t_cache)
+        return logits, cache, None
+    cache, logits = t_cache, []
+    chks = {k: [] for k in RECURRENT_KEYS if k in t_cache}
+    for i in range(fed.shape[1]):
+        lg, cache = t_model.decode_step(fed[:, i], cache)
+        logits.append(lg)
+        for k, seq in chks.items():
+            seq.append(cache[k])
+    return torch.stack(logits, 1), cache, chks
+
+
 def make_spec_step(tcfg, dcfg, scfg: SpecConfig) -> Callable:
     """Build step(t_model, d_model, state, live=None, eos_id=None) ->
     (state, StepOutput).  ``live`` (B,) bool freezes the slots that are
-    False (their state rows are carried unchanged); ``eos_id`` truncates
-    the emission, and all committed state, at the first EOS."""
+    False (their state rows, recurrent cache rows included, are carried
+    unchanged); ``eos_id`` truncates the emission, and all committed
+    state, at the first EOS."""
     dec = make_decoder(scfg)
     K, c, temp = scfg.K, scfg.ctx_window, scfg.temperature
     fused = use_fused(scfg)
@@ -297,7 +332,7 @@ def make_spec_step(tcfg, dcfg, scfg: SpecConfig) -> Callable:
 
         # ---- 2. target verification -------------------------------------
         fed = torch.cat([last[:, None], draft_toks], dim=1)
-        t_logits, t_cache = t_model.extend_step(fed, t_cache)
+        t_logits, t_cache, t_chks = _run_target(t_model, fed, t_cache)
         p_fulls = torch.softmax(t_logits.float() / temp, dim=-1)
         V = p_fulls.shape[-1]
 
@@ -357,7 +392,7 @@ def make_spec_step(tcfg, dcfg, scfg: SpecConfig) -> Callable:
             out, V)
 
         # ---- 6. commit ----------------------------------------------------
-        t_cache = dict(t_cache, pos=t_pos0 + out_len)
+        t_cache = rollback_checkpoints(t_cache, t_chks, t_pos0, out_len)
         d_cache = drafter.commit(d_model, draft_toks[:, K - 1], d_cache,
                                  d_chks, d_pos0, out_len)
         full = torch.cat([window, out], dim=1)
@@ -389,15 +424,22 @@ def make_spec_step(tcfg, dcfg, scfg: SpecConfig) -> Callable:
             new_state["hist_n"] = hist_n + add_i.sum(1)
         if live is not None:
             # frozen slots keep their rows; KV entries written past a
-            # frozen pos are overwritten before any read (position gate)
+            # frozen pos are overwritten before any read (position gate),
+            # but recurrent state has no position gate, so its (L, B, ...)
+            # rows revert (the step made new state tensors)
             dead = ~live
             for k in ("window", "last", "last_ctx", "last_u", "last_msk",
                       "last_yd", "last_yt", "n_committed", "hist", "hist_n"):
                 d = dead.reshape((-1,) + (1,) * (new_state[k].ndim - 1))
                 new_state[k] = torch.where(d, state[k], new_state[k])
             for cn in ("t_cache", "d_cache"):
-                new_state[cn] = dict(new_state[cn], pos=torch.where(
-                    dead, state[cn]["pos"], new_state[cn]["pos"]))
+                old, cache = state[cn], dict(new_state[cn])
+                cache["pos"] = torch.where(dead, old["pos"], cache["pos"])
+                for rk in RECURRENT_KEYS:
+                    if rk in cache:
+                        d = dead.reshape((1, -1) + (1,) * (cache[rk].ndim - 2))
+                        cache[rk] = torch.where(d, old[rk], cache[rk])
+                new_state[cn] = cache
         return new_state, StepOutput(
             out_tokens=out, out_len=out_len, n_accepted=n_acc,
             from_draft=from_draft, u=u, ctx_hashes=all_hashes,
@@ -440,10 +482,15 @@ def _n_tokens_vec(n_tokens, B: int) -> np.ndarray:
 
 
 def _fit_caches(state, need: int):
-    """Grow the KV caches of a resumed state to ``need`` positions, so the
-    continuation's writes stay in bounds (the reference would drop them)."""
+    """Grow the KV caches of a resumed state to ``need`` positions along
+    their sequence axis 2 (dense (L, B, S, Hkv, hd) and the hybrid's
+    (n_sites, B, S, Hkv, hd) alike), so the continuation's writes stay in
+    bounds (the reference would drop them).  Caches without k/v (recurrent
+    state does not grow) are left as they are."""
     for cn in ("t_cache", "d_cache"):
         cache = state[cn]
+        if "k" not in cache:
+            continue
         S = cache["k"].shape[2]
         if S < need:
             pad = list(cache["k"].shape)
@@ -547,7 +594,7 @@ def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
     return loop
 
 
-def generate(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
+def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
              prompts, *, n_tokens, key, strength=None,
              sync_every: Optional[int] = None,
              state: Optional[Dict[str, Any]] = None,
@@ -603,7 +650,7 @@ def generate(t_model: Transformer, d_model: Transformer, scfg: SpecConfig,
         strength=state["strength"].cpu().numpy(), n_syncs=carry["n_syncs"])
 
 
-def serve_requests(t_model: Transformer, d_model: Transformer,
+def serve_requests(t_model: Model, d_model: Model,
                    scfg: SpecConfig, requests, *, config,
                    stats_out: Optional[dict] = None):
     """Continuous batching: serve a request list through ``config.batch``

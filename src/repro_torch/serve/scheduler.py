@@ -22,6 +22,11 @@ chunks, one chunk per slot per sync round, interleaved with decode.
 requests through a refcounted allocator and a ``PrefixCache`` of chain
 digests; KV pages depend only on prompt tokens and weights, never on the
 per-slot watermark key/strength rows, so sharing is sound across tenants.
+A recurrent draft (``serve.drafter``) keeps its state in dense rows outside
+the pool and admits through ``extend_step`` chunks; it refuses
+``prefix_cache=True`` (its state must see the whole prompt), a hybrid
+draft serves in dense mode only, and a recurrent target is refused in
+paged mode.
 
 The contract is **slot isolation**: a request's committed tokens,
 provenance flags (``src``), acceptance coins, context hashes and
@@ -51,6 +56,7 @@ from typing import (Any, Callable, Deque, Dict, Iterator, List, Optional,
 import numpy as np
 import torch
 
+from repro_torch.models.model import is_recurrent
 from repro_torch.serve import engine as E
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.drafter import get_drafter, paged_slot_extend
@@ -533,6 +539,28 @@ class Scheduler:
         self._drafter = get_drafter(self.dcfg)
         self.paged = page_size is not None
         if self.paged:
+            if is_recurrent(self.tcfg):
+                raise ValueError(
+                    f"paged KV caching needs an attention *target*; "
+                    f"target arch_type={self.tcfg.arch_type!r} keeps O(1) "
+                    "recurrent state per slot (nothing to page).  "
+                    "Recurrent models are served as *drafters* — their "
+                    "state lives dense outside the pool (serve.drafter)")
+            if not self._drafter.chunked_extend:
+                raise ValueError(
+                    f"paged admission needs chunked prefill, which the "
+                    f"{self._drafter.name!r} drafter (draft arch_type="
+                    f"{self.dcfg.arch_type!r}) does not support — its "
+                    "shared-attention sites have no chunked extend.  "
+                    "Serve hybrid drafters through the dense path "
+                    "(page_size=None)")
+            if prefix_cache and not self._drafter.paged_cache:
+                raise ValueError(
+                    "prefix_cache=True shares resident prompt KV pages, "
+                    "but a recurrent drafter's dense state must be "
+                    "recomputed over the *full* prompt — prefix hits "
+                    "would skip draft-state prefill.  Serve recurrent "
+                    "drafters with prefix_cache=False")
             self.page_size = int(page_size)
             self.num_pages = int(num_pages)
             self.prefill_chunk = int(prefill_chunk) if prefill_chunk else 8
@@ -716,14 +744,16 @@ class Scheduler:
     def _set_table(self, b: int) -> None:
         """Write slot ``b``'s table row (its pages, then null-page
         padding) into both caches: the two models' ``pos`` advance in
-        lockstep, so one logical allocation serves both pools."""
+        lockstep, so one logical allocation serves both pools.  A
+        recurrent draft's dense cache has no table."""
         row = np.zeros((self.max_pages,), np.int64)
         pages = self._slot_pages[b]
         row[:len(pages)] = pages
         row = torch.as_tensor(row, device=self.dev)
         state = self.carry["state"]
         for cn in ("t_cache", "d_cache"):
-            state[cn]["page_table"][b] = row
+            if "page_table" in state[cn]:
+                state[cn]["page_table"][b] = row
 
     def _chunk(self, toks: torch.Tensor, b: int, start_pos: int,
                new_pos: int) -> torch.Tensor:

@@ -14,7 +14,10 @@ within 1e-5 (another order of float sums); bfloat16 within
 ref.paged_attention_tol, per element: two bf16 ulps of the element plus
 two flips of the row's worst score or probability rounding (another sum
 order may round a score, a probability or the output one ulp the other
-way)."""
+way).  The recurrent kernels (wkv, wkv_step, ssd, ssd_step): every output,
+y and the state, within ref.wkv_tol / ref.ssd_tol, chip_smoke.py's bound
+(twice γ_D times the output's envelope, the plain version run on absolute
+values)."""
 import numpy as np
 import pytest
 import torch
@@ -87,7 +90,9 @@ def test_kernels_match_plain_versions(cuda, V):
         assert torch.equal(sk[same], sr[same])
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"spec_verify_wm": 3, "gumbel_argmax": 1,
-                            "tournament_keyed": 1, "paged_attention": 0}
+                            "tournament_keyed": 1, "paged_attention": 0,
+                            "wkv": 0, "wkv_step": 0, "ssd": 0,
+                            "ssd_step": 0}
 
 
 @pytest.mark.gpu
@@ -189,3 +194,93 @@ def test_paged_attention_matches_plain_version(cuda, dtype, B, Sq, H, Hkv,
     p[0] = 0
     args = (q, k, v, table, p)
     close(ops.paged_attention(*args), ref.paged_attention_ref(*args), args)
+
+
+def _recurrent_inputs(kernel, shape, dtype, dev, seed):
+    """As chip_smoke.rec_inputs, on the card: the model-type inputs (r, k,
+    v, u; dtx, B, C) in ``dtype``, decays, la and the state float32."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def n(*sh, std=1.0, mean=0.0):
+        return torch.randn(sh, generator=g) * std + mean
+
+    B = shape[0]
+    if kernel.startswith("wkv"):
+        H, hd = shape[-2:]
+        r, k, v = n(*shape), n(*shape), n(*shape)
+        w = torch.exp(-torch.exp(n(*shape, mean=-2.0)))
+        return (*(x.to(dev, dtype) for x in (r, k, v)), w.to(dev),
+                n(H, hd, std=0.5).to(dev, dtype),
+                n(B, H, hd, hd, std=0.1).to(dev))
+    H, hd, N = shape[-3:]
+    lead = shape[:-3]
+    la = -F.softplus(n(*lead, H))
+    dtx = F.softplus(n(*lead, H, 1)) * n(*lead, H, hd)
+    return (la.to(dev), *(x.to(dev, dtype) for x in
+                          (dtx, n(*lead, N), n(*lead, N))),
+            n(B, H, hd, N, std=0.1).to(dev))
+
+
+RECURRENT = {
+    "wkv_step": (ops.wkv_step, ref.wkv_step_ref, ref.wkv_tol),
+    "wkv": (ops.wkv, ref.wkv_ref, ref.wkv_tol),
+    "ssd_step": (ops.ssd_step, ref.ssd_step_ref, ref.ssd_tol),
+    "ssd": (lambda *a: ops.ssd(*a, chunk=16),
+            lambda *a: ref.ssd_chunked_ref(*a, 16),
+            lambda *a: ref.ssd_tol(*a, chunk=16)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,shape", [
+    ("wkv_step", (3, 5, 64)), ("wkv_step", (2, 3, 32)),
+    ("wkv", (2, 37, 3, 64)), ("wkv", (1, 5, 2, 32)),
+    ("ssd_step", (3, 5, 64, 64)), ("ssd_step", (2, 3, 16, 8)),
+    ("ssd", (2, 37, 3, 64, 64)), ("ssd", (1, 16, 2, 16, 8)),
+    ("ssd", (1, 5, 2, 32, 16))])
+def test_recurrent_kernels_match_plain_versions(cuda, kernel, shape,
+                                                dtype):
+    """Each recurrent kernel, including ragged S (S % chunk != 0) and S
+    under one chunk, against its plain version on the same inputs."""
+    fn, plain, tolf = RECURRENT[kernel]
+    args = _recurrent_inputs(kernel, shape, dtype, cuda, seed=sum(shape))
+    ops.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == 1
+    for out, want, tol in zip(got, plain(*args), tolf(*args)):
+        assert out.dtype == torch.float32 and out.shape == want.shape
+        assert bool(((out - want).abs() <= tol).all()), \
+            float((out - want).abs().max())
+
+
+@pytest.mark.gpu
+def test_recurrent_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    r = torch.zeros((2, 3, 64), device=cuda)
+    s0 = torch.zeros((2, 3, 64, 64), device=cuda)
+    u = torch.zeros((3, 64), device=cuda)
+    with pytest.raises(TypeError):               # half inputs
+        ops.wkv_step(r.half(), r.half(), r.half(), r, u.half(), s0)
+    with pytest.raises(TypeError):               # a bf16 state
+        ops.wkv_step(r, r, r, r, u, s0.bfloat16())
+    with pytest.raises(ValueError):              # no 48-wide instantiation
+        z = torch.zeros((2, 3, 48), device=cuda)
+        ops.wkv_step(z, z, z, z, u[:, :48],
+                     torch.zeros((2, 3, 48, 48), device=cuda))
+    with pytest.raises(ValueError):              # a state of the wrong shape
+        ops.wkv(r[:, None], r[:, None], r[:, None], r[:, None], u, s0[:1])
+    la = torch.zeros((2, 3), device=cuda)
+    bc = torch.zeros((2, 16), device=cuda)
+    h0 = torch.zeros((2, 3, 64, 16), device=cuda)
+    with pytest.raises(TypeError):               # la must be float32
+        ops.ssd_step(la.bfloat16(), r, bc, bc, h0)
+    with pytest.raises(ValueError):              # B of the wrong width
+        ops.ssd_step(la, r, bc[:, :8], bc, h0)
+    with pytest.raises(ValueError):              # a chunk past shared memory
+        ops.ssd(la[:, None].expand(2, 300, 3).contiguous(),
+                torch.zeros((2, 300, 3, 256), device=cuda),
+                torch.zeros((2, 300, 256), device=cuda),
+                torch.zeros((2, 300, 256), device=cuda),
+                torch.zeros((2, 3, 256, 256), device=cuda), chunk=256)
