@@ -8,7 +8,11 @@ Phases, each fatal on failure, in this order:
   2. every kernel against its plain PyTorch version on the card, at the
      serving shapes (B=4, K=4, m=30, V=32000 and V=256128), with the
      race, the tournament and the degenerate tail, mixed seen / live rows
-     and mixed keys; times of kernel, plain version and bound;
+     and mixed keys; the unkeyed tournament at B=4 and V=32000, (8, 4096),
+     the Monte-Carlo shape (16384, 32000) and a Fig. 1 chunk (20000, 10),
+     whose tolerance must also see two emulated faults (m − 1 rounds, a
+     wrong seed row); the unkeyed verify at (4, 4, 32000) and (8, 4,
+     4096); times of kernel, plain version and bound;
   2b. the paged-attention kernel against its plain version at the
      target-verify, prefill-chunk, draft and TINY GQA shapes, in bf16 and
      fp32, with shuffled pages, null tails and a FREE row, each bf16
@@ -48,7 +52,19 @@ Phases, each fatal on failure, in this order:
      against the card, and served against solo generate on the card;
   4c. TINY_TARGET with the smoke-size RWKV6 and Zamba2 drafts in fp32:
      generate and serve_requests (paged RWKV6, dense Zamba2) on the CPU
-     against the card, and served against solo on the card.
+     against the card, and served against solo on the card;
+  5. the paper's measures (run in main() before the target is freed):
+     Def. 3.1 strength of the LLAMA_7B target's next-token distribution
+     (V=32000) for gumbel, synthid and synthid-inf at 16384 contexts, and
+     the card against the CPU at 2048 / 256 / 256; Fig. 1's linear, Hu
+     and Google curves of gumbel and synthid at the reference's defaults
+     (200,000 contexts, 33 γ, 33 θ), and the card against the CPU at 4000
+     contexts and 9 γ; tiered serve_requests of the TINY pair through a
+     synthid StrengthController with its curve computed on the card,
+     against the CPU; detection records and scores of a TINY generate
+     against the CPU's (AUCs printed, not gated); the micro-benchmark's
+     calls of the race, the unkeyed tournament and the unkeyed verify;
+     launch counts of each path.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -254,11 +270,12 @@ def check_spec_verify(V, tail, name, streams, record):
                        bound_ms=bnd, bound_by=by))
 
 
-def check_gumbel_argmax(V, record):
+def check_gumbel_argmax(B, V, record):
+    """ops.gumbel_argmax against its plain version: tokens equal outside
+    margin rows (counted), U[token] bitwise, an all-zero row gives 0."""
     import torch
     from repro_torch.kernels import ops, ref
-    B = 4
-    g = torch.Generator(device=DEV).manual_seed(V)
+    g = torch.Generator(device=DEV).manual_seed(V if B == 4 else B + V)
     probs = torch.softmax(torch.randn((B, V), generator=g,
                                       device=DEV) * 3, -1)
     probs[3] = 0.0                  # an all-zero row: token 0, U[0]
@@ -269,17 +286,19 @@ def check_gumbel_argmax(V, record):
     marg = ref.margin(scores)
     in_margin = marg < MARGIN_TOL
     same = tk == tr
+    name = f"gumbel_argmax B={B} V={V}"
     check(bool((same | in_margin).all()),
-          f"gumbel_argmax V={V}: {tk.tolist()} vs {tr.tolist()}")
+          f"{name}: {int((~same & ~in_margin).sum())} tokens differ "
+          f"outside margin rows")
     check(int(tk[3]) == 0, "gumbel_argmax: all-zero row must give token 0")
     err = float((uk - ur)[same].abs().max())
-    check(err == 0.0, f"gumbel_argmax V={V}: U differs by {err}")
+    check(err == 0.0, f"{name}: U differs by {err}")
     times = timings("gumbel_argmax_kernel",
                     lambda: ops.gumbel_argmax(probs, seeds),
                     lambda: ref.gumbel_argmax_ref(probs, seeds))
     bnd, by = bound_ms(4 * B * V + 8 * B + 12 * B, B * V * OPS_RACE)
-    record.append(dict(case=f"gumbel_argmax V={V}",
-                       margin_rows=int(in_margin.sum()), max_abs_err=err,
+    record.append(dict(case=name, margin_rows=int(in_margin.sum()),
+                       max_abs_err=err,
                        **times, bound_ms=bnd, bound_by=by))
 
 
@@ -314,12 +333,110 @@ def check_tournament(V, record):
                        **times, bound_ms=bnd, bound_by=by))
 
 
+# the unkeyed tournament's shapes: the table's and the micro-benchmark's
+# (B=4, V=32000), the micro-benchmark's (8, 4096), the Monte-Carlo engine
+# of Def. 3.1 strength (16384 contexts at V=32000) and one chunk of the
+# Fig. 1 curves (20000 contexts at V=10)
+TOURNAMENT_SHAPES = ((4, 32000), (8, 4096), (16384, 32000), (20000, 10))
+# the Gumbel race's: the served rows (B=4 at both vocabularies) and the
+# same two Monte-Carlo shapes (gumbel's modified_dist)
+GUMBEL_ARGMAX_SHAPES = ((4, 32000), (4, 256128), (16384, 32000),
+                        (20000, 10))
+SPEC_VERIFY_SHAPES = ((4, 4, 32000), (8, 4, 4096))
+
+
+def tol_ratio(got, want, rtol=DIST_RTOL, atol=DIST_ATOL) -> float:
+    """max |got − want| / (atol + rtol·|want|): allclose holds iff <= 1."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def check_tournament_unkeyed(B, V, record):
+    """ops.tournament against its plain version; at the table's shape also
+    two emulated faults (m − 1 rounds, the seed row shifted by one), each
+    of which the tolerance must see."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    m = 30
+    g = torch.Generator(device=DEV).manual_seed(B + V + 2)
+    probs = torch.softmax(torch.randn((B, V), generator=g,
+                                      device=DEV) * 3, -1)
+    seeds = torch.randint(0, 2**32, (B,), generator=g, device=DEV)
+    got = ops.tournament(probs, seeds, m=m)
+    torch.cuda.synchronize()
+    want = ref.tournament_ref(probs, seeds, m=m)
+    err = float((got - want).abs().max())
+    ratio = tol_ratio(got, want)
+    name = f"tournament B={B} V={V}"
+    check(ratio <= 1.0, f"{name}: max abs err {err}, {ratio} tolerances")
+    faults = {}
+    if (B, V) == TOURNAMENT_SHAPES[0]:
+        for fault, bad in (
+                ("m-1 rounds", ref.tournament_ref(probs, seeds, m=m - 1)),
+                ("wrong seed row", ref.tournament_ref(probs, seeds.roll(1),
+                                                      m=m))):
+            faults[fault] = tol_ratio(got, bad)
+            check(faults[fault] > 1.0,
+                  f"{name}: the tolerance does not see the fault {fault}")
+        del bad
+    del want
+    times = timings("tournament_kernel",
+                    lambda: ops.tournament(probs, seeds, m=m),
+                    lambda: ref.tournament_ref(probs, seeds, m=m))
+    bnd, by = bound_ms(8 * B * V + 8 * B, B * V * m * OPS_ROUND)
+    record.append(dict(case=name, max_abs_err=err, err_over_tol=ratio,
+                       fault_over_tol=faults, **times, bound_ms=bnd,
+                       bound_by=by))
+
+
+def check_spec_verify_unkeyed(B, K, V, record):
+    """ops.spec_verify against its plain version: n_acc and the prefix
+    bitwise, the residual token outside margin rows, its U bitwise."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    p, q, toks, u, _, ctx, _, _ = verify_inputs(B, K, V, seed=B * K + V)
+    p, seeds = p[:, :K].contiguous(), ctx[:, :K].contiguous()
+    nk, pk, tk, uk = ops.spec_verify(p, q, toks, u, seeds)
+    torch.cuda.synchronize()
+    nr, pr, tr, ur = ref.spec_verify_ref(p, q, toks, u, seeds)
+    name = f"spec_verify B={B} K={K} V={V}"
+    check(torch.equal(nk, nr) and torch.equal(pk, pr),
+          f"{name}: n_acc {nk.tolist()} vs {nr.tolist()} or prefix")
+    check(int(nk[0]) == K, f"{name}: row 0 must accept all K drafts")
+    rows = torch.arange(B, device=DEV)
+    slot = nr.clamp_max(K - 1)
+    r = (p[rows, slot] - q[rows, slot]).clamp_min(0.0)
+    marg = ref.margin(ref.race_scores(r, seeds[rows, slot])[0])
+    in_margin = marg < MARGIN_TOL
+    same = tk == tr
+    check(bool((same | in_margin).all()),
+          f"{name}: tokens {tk.tolist()} vs {tr.tolist()}")
+    err = float((uk - ur)[same].abs().max())
+    check(err == 0.0, f"{name}: U differs by {err}")
+    times = timings("spec_verify_kernel",
+                    lambda: ops.spec_verify(p, q, toks, u, seeds),
+                    lambda: ref.spec_verify_ref(p, q, toks, u, seeds))
+    # the work this data needs: every row reads its drafts, coins, seeds
+    # and the 2K gathered probabilities, then one slot's rows of p and q,
+    # and writes n_acc, the prefix, the token and its U
+    nbytes = B * (8 * K + 4 * K + 8 * K + 8 * K + 8 * V + 8 + 8 * K + 12)
+    bnd, by = bound_ms(nbytes, B * V * (OPS_RACE + 2))
+    record.append(dict(case=name, margin_rows=int(in_margin.sum()),
+                       max_abs_err=err, **times, bound_ms=bnd, bound_by=by,
+                       all_inputs_bound_ms=8 * B * K * V / HBM_BYTES_PER_S
+                       * 1e3))
+
+
 def phase_kernels():
     from repro_torch.core.watermark.base import FusedTail
     from repro_torch.kernels import ops
     record = []
+    for B, V in TOURNAMENT_SHAPES:
+        check_tournament_unkeyed(B, V, record)
+    for B, K, V in SPEC_VERIFY_SHAPES:
+        check_spec_verify_unkeyed(B, K, V, record)
+    for B, V in GUMBEL_ARGMAX_SHAPES:
+        check_gumbel_argmax(B, V, record)
     for V in (32000, 256128):
-        check_gumbel_argmax(V, record)
         check_tournament(V, record)
         check_spec_verify(V, None, f"spec_verify_wm race V={V}",
                           ops.DEFAULT_STREAMS, record)
@@ -327,7 +444,7 @@ def phase_kernels():
             tail = FusedTail(kind="tournament", m=30, stat_dim=30,
                              degenerate=degen)
             check_spec_verify(
-                V, tail, f"spec_verify_wm tournament{' degen' if degen else ''}"
+                V, tail, f"spec_verify_wm_tournament{' degen' if degen else ''}"
                 f" V={V}", ops.DEFAULT_STREAMS, record)
     for r in record:
         print("kernel-check " + json.dumps(r))
@@ -344,7 +461,10 @@ SLICE = dict(B=4, prompt=16, n_tokens=48, K=4, temperature=0.7)
 # run's tokens are the longer run's first ones) to keep the script inside
 # its time limit; gumbel and synthid check all n_tokens
 INF_CHECK_TOKENS = 16
-DENSE_KERNELS = ("spec_verify_wm", "gumbel_argmax", "tournament_keyed")
+# spec_verify_wm_tournament: the fused tail's tournament branch, counted
+# apart from its race branch (one CUDA kernel, spec_verify_wm_kernel)
+DENSE_KERNELS = ("spec_verify_wm", "spec_verify_wm_tournament",
+                 "gumbel_argmax", "tournament_keyed")
 KERNEL_NAMES = DENSE_KERNELS + ("paged_attention",)
 RECURRENT_KERNELS = ("wkv", "wkv_step", "ssd", "ssd_step")
 SCHEMES = ("gumbel", "synthid", "synthid-inf")
@@ -1461,13 +1581,413 @@ def phase_tiny():
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the paper's measures on the card
+# ---------------------------------------------------------------------------
+
+MEASURE_KEY = 0xC0FFEE
+MEASURE_SEEDS = 16384            # Def. 3.1 strength at V=32000
+# the card-against-CPU runs: the plain tournament takes ~45 ns per entry
+# and round on the CPU, so the synthid schemes compare at 256 contexts
+CPU_STRENGTH_SEEDS = {"gumbel": 2048, "synthid": 256, "synthid-inf": 256}
+STRENGTH_RTOL = 1e-4             # the CPU tests' tolerance (relative)
+CURVE_ATOL = 1e-4                # ditto (absolute, curves)
+CURVE_SCHEMES = ("gumbel", "synthid")
+CURVE_KINDS = ("linear", "hu", "google")
+FIG1_CPU = dict(n_seeds=4000, n_gamma=9, seed_chunk=2000)
+TIERS = ("latency", "balanced", "assurance")
+MEASURE_KERNELS = ("tournament", "gumbel_argmax", "spec_verify")
+
+
+def next_token_probs(target):
+    """The LLAMA_7B target's next-token distribution (V=32000, float32) on
+    a fixed seeded prompt, at the slice's temperature."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(23)
+    prompt = torch.randint(1, target.cfg.vocab, (1, 16), generator=g)
+    logits, _ = target.prefill(prompt.to(DEV), 16)
+    return torch.softmax(logits[0, -1].float() / SLICE["temperature"], -1)
+
+
+def memo_dists(dist_fn):
+    """dist_fn computing each (contexts, stream) batch once, so the
+    estimators of one scheme read one set of P_ζ rows, which stay readable
+    for the per-row comparison."""
+    memo = {}
+
+    def fn(probs, key, ctxs, stream):
+        k = (len(ctxs), stream)
+        if k not in memo:
+            memo[k] = dist_fn(probs, key, ctxs, stream)
+        return memo[k]
+
+    fn.memo = memo
+    return fn
+
+
+def strengths(probs, seeds, memo=False):
+    """Def. 3.1 strength of each scheme (watermark_strength and the
+    entropy identity; check_unbiased for synthid) at ``seeds[name]``
+    contexts on ``probs``'s device; with ``memo`` also each scheme's P_ζ
+    rows (on the CPU)."""
+    from repro_torch.core import strength as S
+    from repro_torch.core.watermark import get_decoder
+    out, rows = {}, {}
+    for name in SCHEMES:
+        dist = get_decoder(name).modified_dist
+        if memo:
+            dist = memo_dists(dist)
+        n = seeds[name]
+        r = dict(n_seeds=n,
+                 ws=float(S.watermark_strength(dist, probs, MEASURE_KEY,
+                                               n_seeds=n)),
+                 ws_entropy=float(S.strength_via_entropy(
+                     dist, probs, MEASURE_KEY, n_seeds=n)))
+        if name == "synthid":
+            r["unbiased_max_err"] = float(S.check_unbiased(
+                dist, probs, MEASURE_KEY, n_seeds=n))
+        out[name] = r
+        if memo:
+            rows[name] = next(iter(dist.memo.values())).cpu()
+    return out, rows
+
+
+def dist_margins(name, probs, ctxs):
+    """The race (gumbel) or tournament-argmax (synthid-inf) margin of the
+    P_ζ rows of contexts ``ctxs``, from the plain versions on the CPU."""
+    from repro_torch.core import prf
+    from repro_torch.kernels import ref
+    n, V = len(ctxs), probs.shape[-1]
+    seeds = prf.wm_seed(MEASURE_KEY, ctxs, prf.STREAM_DRAFT)
+    if name == "gumbel":
+        return ref.margin(ref.race_scores(probs.expand(n, V), seeds)[0])
+    pn = probs / probs.sum()
+    return ref.margin(ref.tournament_ref(pn.expand(n, V), seeds, m=30))
+
+
+def compare_strengths(probs):
+    """The estimators on the card against the CPU at CPU_STRENGTH_SEEDS:
+    the P_ζ rows (synthid within the kernel tolerance; a degenerate
+    scheme's tokens equal outside counted margin rows) and, for a scheme
+    with no margin row, each estimate within STRENGTH_RTOL."""
+    import torch
+    gpu, rows_g = strengths(probs, CPU_STRENGTH_SEEDS, memo=True)
+    cpu, rows_c = strengths(probs.cpu(), CPU_STRENGTH_SEEDS, memo=True)
+    margin_rows = {}
+    for name in SCHEMES:
+        a, b = rows_g[name], rows_c[name]
+        if name == "synthid":
+            check(tol_ratio(a, b) <= 1.0,
+                  f"strength {name}: card P_ζ rows differ from the CPU's")
+            margin_rows[name] = 0
+        else:
+            differ = torch.nonzero(a.argmax(-1) != b.argmax(-1))[:, 0]
+            marg = dist_margins(name, probs.cpu(), differ)
+            check(bool((marg < MARGIN_TOL).all()),
+                  f"strength {name}: card tokens part from the CPU's at "
+                  f"contexts {differ.tolist()}, margins {marg.tolist()}")
+            margin_rows[name] = len(differ)
+        if margin_rows[name]:
+            continue
+        for k, v in cpu[name].items():
+            check(abs(gpu[name][k] - v) <= STRENGTH_RTOL * abs(v) + 1e-7,
+                  f"strength {name} {k}: card {gpu[name][k]} CPU {v}")
+    return dict(card=gpu, cpu=cpu, margin_rows=margin_rows)
+
+
+def fig1_curves(device, **kw):
+    """Fig. 1's linear, Hu and Google curves of gumbel and synthid (the
+    reference's defaults unless ``kw`` says otherwise; n_theta = n_gamma)
+    and the reference points, on ``device``."""
+    from repro_torch.core import tradeoff as T
+    out = {}
+    for name in CURVE_SCHEMES:
+        for kind in CURVE_KINDS:
+            if kind == "linear":
+                c = T.linear_class_curve(name, device=device,
+                                         n_theta=kw.get("n_gamma", 33), **kw)
+            else:
+                c = T.composed_class_curve(name, kind, device=device, **kw)
+            out[f"{kind} {name}"] = c
+    return out, T.reference_points(device=device)
+
+
+def check_fig1(curves, refs):
+    """Fig. 1's relations, by the reference tests' own means: finite
+    curves; on the linear gumbel curve zero strength at γ=0 and Ent(P) at
+    γ=1; Hu's efficiency at γ=0 the standard one; no curve above Alg. 1's
+    point (1 − TV, Ent(P))."""
+    import numpy as np
+    for label, c in curves.items():
+        check(bool(np.isfinite(c.efficiency).all()
+                   and np.isfinite(c.strength).all()),
+              f"fig1 {label}: non-finite curve")
+    lin = curves["linear gumbel"]
+    check(abs(lin.strength[0]) <= 1e-5,
+          f"fig1: strength at γ=0 {lin.strength[0]}")
+    check(abs(lin.strength[-1] - refs["max_strength"])
+          <= 0.05 * refs["max_strength"],
+          f"fig1: linear gumbel strength at γ=1 {lin.strength[-1]}, "
+          f"Ent(P) {refs['max_strength']}")
+    check(abs(curves["hu gumbel"].efficiency[0]
+              - refs["std_spec_efficiency"]) <= 0.02,
+          "fig1: Hu's efficiency at γ=0 is not the standard one")
+    for label, c in curves.items():
+        at = np.interp(refs["std_spec_efficiency"], c.efficiency[::-1],
+                       c.strength[::-1])
+        check(at <= refs["max_strength"] + 1e-5,
+              f"fig1 {label}: above Alg. 1's point ({at})")
+
+
+def endpoints(c):
+    return dict(gamma0=[float(c.efficiency[0]), float(c.strength[0])],
+                gamma1=[float(c.efficiency[-1]), float(c.strength[-1])])
+
+
+def tiny_tiered_serve(models, device):
+    """serve_requests of the TINY pair (dense, 4 slots) with requests of
+    all three tiers through a synthid StrengthController whose curve is
+    computed on ``device`` (n_seeds 20000, n_gamma 17)."""
+    from repro_torch.configs import TINY_TARGET
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.keys import StrengthController
+    reqs = [dict(prompt=p, n_tokens=n, uid=i, tier=TIERS[i % len(TIERS)])
+            for i, (p, n) in enumerate(serve_workload(
+                31, 9, (4, 40), (8, 24), TINY_TARGET.vocab, 12))]
+    ctrl = StrengthController("synthid", device=device)
+    scfg = E.SpecConfig(K=4, watermark="synthid", m=30, temperature=0.7)
+    res = E.serve_requests(*models, scfg, reqs,
+                           config=ServeConfig(batch=4, key=99, sync_every=3,
+                                              strength_controller=ctrl))
+    return res, ctrl, scfg, reqs
+
+
+def tiny_detection(models, wm, device):
+    """A generate of the TINY pair (B=6, 36 tokens), its detection records
+    and null records of seeded random text, recovered on ``device``."""
+    import numpy as np
+    from repro_torch.configs import TINY_TARGET
+    from repro_torch.core.detection import pipeline
+    from repro_torch.serve import engine as E
+    V = TINY_TARGET.vocab
+    rng = np.random.default_rng(41)
+    prompts = rng.integers(1, V, size=(6, 8))
+    null_toks = rng.integers(1, V, size=(6, 36))
+    scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
+    dec = E.make_decoder(scfg)
+    res = E.generate(*models, scfg, prompts, n_tokens=36, key=MEASURE_KEY)
+    recs = pipeline.records_from_generation(res, dec, MEASURE_KEY, V,
+                                            device=device)
+    null = pipeline.null_records(null_toks, dec, MEASURE_KEY, V,
+                                 device=device)
+    return res, recs, null, scfg, prompts
+
+
+def kernels_bench_path():
+    """The calls of the micro-benchmark (the reference's
+    benchmarks/kernels_bench.py) through the port's wrappers: the race and
+    the unkeyed tournament at (8, 4096) and (4, 32000), the unkeyed verify
+    at (8, 4, 4096); returns each call's median ms."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for B, V in ((8, 4096), (4, 32000)):
+        probs = torch.softmax(torch.randn((B, V), generator=g, device=DEV),
+                              -1)
+        seeds = torch.randint(0, 2**32, (B,), generator=g, device=DEV)
+        out[f"gumbel_argmax B={B} V={V}"] = call_ms(
+            lambda: ops.gumbel_argmax(probs, seeds), 10)
+        out[f"tournament_m30 B={B} V={V}"] = call_ms(
+            lambda: ops.tournament(probs, seeds, m=30), 10)
+    B, K, V = 8, 4, 4096
+    p = torch.softmax(torch.randn((B, K, V), generator=g, device=DEV), -1)
+    q = torch.softmax(torch.randn((B, K, V), generator=g, device=DEV), -1)
+    toks = torch.randint(0, V, (B, K), generator=g, device=DEV)
+    u = torch.rand((B, K), generator=g, device=DEV)
+    seeds = torch.randint(0, 2**32, (B, K), generator=g, device=DEV)
+    out[f"spec_verify B={B} K={K} V={V}"] = call_ms(
+        lambda: ops.spec_verify(p, q, toks, u, seeds), 10)
+    return out
+
+
+def compare_tiers(rc, rg, ctrl_c, ctrl_g, cpu, scfg, reqs):
+    """Tiered serving on the card against the CPU: the controllers' curves
+    within CURVE_ATOL and their picks equal (a pick may differ only where
+    a curve point sits on the tier's floor within CURVE_ATOL); each
+    request's γ equal and its tokens, provenance, hashes and coins equal
+    outside counted margin rows."""
+    import numpy as np
+    eff_g = np.asarray(ctrl_g._get_curve().efficiency)
+    eff_c = np.asarray(ctrl_c._get_curve().efficiency)
+    check(float(np.abs(eff_g - eff_c).max()) <= CURVE_ATOL,
+          "tiers: the controller's curve differs between card and CPU")
+    picks, on_floor = {}, 0
+    for t in TIERS:
+        picks[t] = (ctrl_g.pick(t), ctrl_c.pick(t))
+        if picks[t][0] != picks[t][1]:
+            check(float(np.abs(eff_c - ctrl_c.tiers[t]).min()) <= CURVE_ATOL,
+                  f"tiers: {t} picks γ {picks[t]} on the card and the CPU")
+            on_floor += 1
+    margin_rows = 0
+    for a, b, r in zip(rc, rg, reqs):
+        check(b.tier == r["tier"], f"tiers uid {b.uid}: tier {b.tier}")
+        if a.strength != b.strength:
+            check(on_floor > 0, f"tiers uid {a.uid}: γ {b.strength} on the "
+                  f"card, {a.strength} on the CPU")
+            continue
+        margin_rows += compare_requests(
+            a.as_generation_result(), b.as_generation_result(), cpu, scfg,
+            r["prompt"], f"tiers uid {a.uid}")
+    return dict(picks=picks, picks_on_floor=on_floor,
+                gammas=sorted({r.strength for r in rg}),
+                margin_rows=margin_rows, requests=len(rg))
+
+
+def compare_detection(wm, got, want, cpu):
+    """Detection records of a card generate against the CPU's: rows whose
+    generation parts only at a counted near-tie are skipped; the others'
+    records (and every null record) equal bitwise, and for gumbel their
+    ARS scores within rtol 1e-6.  Returns (the card's scores, the AUC of
+    the card's watermarked records against its null records, margin
+    rows): Ars-τ for gumbel, Bayes-Prior with a ψ model fitted on the
+    card for synthid."""
+    import numpy as np
+    from repro_torch.core.detection import gumbel_detect, records
+    from repro_torch.core.detection import synthid_detect
+    from repro_torch.serve import divergence
+    res_g, recs_g, null_g, scfg, prompts = got
+    res_c, recs_c, null_c, _, _ = want
+    same, parted = [], 0
+    for b in range(len(recs_g)):
+        j = divergence.first_divergence(res_c, res_g, b)
+        if j is not None:
+            marg = divergence.decision_margin(*cpu, scfg, prompts[b], res_c,
+                                              b, j)
+            check(marg < MARGIN_TOL, f"detection {wm}: row {b} parts at {j}"
+                  f" with margin {marg}")
+            parted += 1
+            continue
+        same.append(b)
+    fields = ("tokens", "y_draft", "y_target", "u", "src", "ctx")
+    for b in same:
+        check(all(np.array_equal(getattr(recs_c[b], f),
+                                 getattr(recs_g[b], f)) for f in fields),
+              f"detection {wm} row {b}: records differ from the CPU's")
+    for a, c in zip(null_c, null_g):
+        check(all(np.array_equal(getattr(a, f), getattr(c, f))
+                  for f in fields), f"detection {wm}: null records differ")
+    if wm == "gumbel":
+        sg = gumbel_detect.scores_tau(recs_g, 0.5, 36)
+        sc = gumbel_detect.scores_tau(recs_c, 0.5, 36)
+        check(np.allclose(sg[same], sc[same], rtol=1e-6, atol=0),
+              f"detection: ARS scores {sg} vs CPU {sc}")
+        null = gumbel_detect.scores_tau(null_g, 0.5, 36)
+    else:
+        g = np.concatenate([r.y_draft[r.src == 1] for r in recs_g])
+        psi = synthid_detect.fit_psi(g, 30, device=DEV)
+        sg = synthid_detect.scores_prior(psi, recs_g, 0.5, 36)
+        null = synthid_detect.scores_prior(psi, null_g, 0.5, 36)
+    return sg, records.auc(sg, null), parted
+
+
+def phase_measures(target):
+    """Def. 3.1 strength of the LLAMA_7B target's next-token distribution,
+    Fig. 1's curves at the reference's defaults, tiered serving and
+    detection, each on the card and against the CPU where stated, and the
+    micro-benchmark's calls.  Returns (launch counts per path, results)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TINY_DRAFT, TINY_TARGET
+    from repro_torch.core import strength as S
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts, out, secs = {}, {}, {}
+
+    def counted(path, fn):
+        res, secs[path], counts[path] = run_counted(fn)
+        return res
+
+    probs = next_token_probs(target)
+    ent = float(S.entropy(probs))
+    ws = counted("strength", lambda: strengths(
+        probs, {k: MEASURE_SEEDS for k in SCHEMES})[0])
+    for name, r in ws.items():
+        check(all(np.isfinite(v) for v in r.values()),
+              f"strength {name}: {r}")
+        check(-0.05 * ent <= r["ws"] <= 1.05 * ent,
+              f"strength {name}: {r['ws']} outside [0, Ent(P) = {ent}]")
+        print(f"strength {name}: Ent(P) {ent} " + json.dumps(r))
+    out["strength"] = dict(entropy=ent, card=ws,
+                           vs_cpu=compare_strengths(probs))
+    print("strength card vs CPU: " + json.dumps(out["strength"]["vs_cpu"]))
+
+    curves, refs = counted("fig1", lambda: fig1_curves(DEV))
+    check_fig1(curves, refs)
+    out["fig1"] = dict(reference_points=refs, curves={
+        k: endpoints(c) for k, c in curves.items()})
+    for k, c in curves.items():
+        print(f"fig1 {k}: " + json.dumps(endpoints(c)))
+    print("fig1 reference points: " + json.dumps(refs))
+    small_g, refs_g = fig1_curves(DEV, **FIG1_CPU)
+    small_c, refs_c = fig1_curves("cpu", **FIG1_CPU)
+    worst = max(float(np.abs(getattr(small_g[k], f)
+                             - getattr(small_c[k], f)).max())
+                for k in small_g for f in ("efficiency", "strength"))
+    check(worst <= CURVE_ATOL, f"fig1 card vs CPU: max abs diff {worst}")
+    check(all(abs(refs_g[k] - refs_c[k]) <= 1e-6 for k in refs_c),
+          "fig1: reference points differ between card and CPU")
+    out["fig1"]["card_vs_cpu_max_abs_diff"] = worst
+
+    cpu = [init_params(c, seed=s, device="cpu")
+           for c, s in ((TINY_TARGET, 3), (TINY_DRAFT, 4))]
+    gpu = [m.to(DEV) for m in (init_params(TINY_TARGET, seed=3, device="cpu"),
+                               init_params(TINY_DRAFT, seed=4, device="cpu"))]
+    rg, ctrl_g, scfg, reqs = counted("tiers synthid",
+                                     lambda: tiny_tiered_serve(gpu, DEV))
+    rc, ctrl_c, _, _ = tiny_tiered_serve(cpu, "cpu")
+    out["tiers"] = compare_tiers(rc, rg, ctrl_c, ctrl_g, cpu, scfg, reqs)
+    print("tiers: " + json.dumps(out["tiers"]))
+
+    out["detection"] = {}
+    for wm in ("gumbel", "synthid"):
+        got = counted(f"detection {wm}", lambda: tiny_detection(gpu, wm, DEV))
+        sg, auc, parted = compare_detection(
+            wm, got, tiny_detection(cpu, wm, "cpu"), cpu)
+        out["detection"][wm] = dict(auc_vs_null=auc, margin_rows=parted,
+                                    scores=[float(x) for x in sg])
+        print(f"detection {wm}: " + json.dumps(out["detection"][wm]))
+
+    out["kernels_bench_ms"] = counted("kernels_bench", kernels_bench_path)
+    for path, c in counts.items():
+        print(f"measures {path}: {secs[path]:.2f} s, launches "
+              + json.dumps({k: c[k] for k in MEASURE_KERNELS}))
+    for path in ("strength", "fig1", "tiers synthid"):
+        check(counts[path]["tournament"] > 0,
+              f"{path}: the tournament kernel never launched")
+    for path in ("strength", "fig1"):
+        check(counts[path]["gumbel_argmax"] > 0,
+              f"{path}: the race kernel never launched")
+    check(counts["kernels_bench"]["spec_verify"] > 0,
+          "kernels_bench: the verify kernel never launched")
+    out["path_seconds"] = secs
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = [
     ("spec_verify_wm", "src/repro_torch/kernels/csrc/spec_verify_wm.cu",
      "src/repro/kernels/spec_verify.py:244", "spec_verify_wm race V=32000"),
+    # the same kernel's tournament branch (the table's row 2), counted apart
+    # by ops.spec_verify_wm
+    ("spec_verify_wm_tournament",
+     "src/repro_torch/kernels/csrc/spec_verify_wm.cu",
+     "src/repro/kernels/spec_verify.py:202",
+     "spec_verify_wm_tournament V=32000"),
     ("gumbel_argmax", "src/repro_torch/kernels/csrc/gumbel_argmax.cu",
-     "src/repro/kernels/gumbel_argmax.py:70", "gumbel_argmax V=32000"),
+     "src/repro/kernels/gumbel_argmax.py:70", "gumbel_argmax B=4 V=32000"),
     ("tournament_keyed", "src/repro_torch/kernels/csrc/tournament_keyed.cu",
      "src/repro/kernels/tournament.py:88", "tournament_keyed V=32000"),
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1481,6 +2001,10 @@ KERNELS = [
      "src/repro/kernels/ssd.py:64", "ssd batch float32"),
     ("ssd_step", "src/repro_torch/kernels/csrc/ssd_step.cu",
      "src/repro/kernels/ssd.py:121", "ssd_step zamba2-1.2b float32"),
+    ("tournament", "src/repro_torch/kernels/csrc/tournament.cu",
+     "src/repro/kernels/tournament.py:64", "tournament B=4 V=32000"),
+    ("spec_verify", "src/repro_torch/kernels/csrc/spec_verify.cu",
+     "src/repro/kernels/spec_verify.py:93", "spec_verify B=4 K=4 V=32000"),
 ]
 
 
@@ -1533,6 +2057,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec_counts, rec_results = timed("3c recurrent drafts", phase_recurrent,
                                     target)
+    measure_counts, measure_results = timed("5 measures", phase_measures,
+                                            target)
     del target
     torch.cuda.empty_cache()
     tiny_margin_rows = timed("4 tiny generate", phase_tiny)
@@ -1543,11 +2069,12 @@ def main() -> int:
 
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
-             **rec_counts}
+             **rec_counts, **measure_counts}
     kernels = []
     for name, source, replaces, case in KERNELS:
         r = by_case[case]
-        cases = [x for x in record if x["case"].split()[0] == name]
+        prefix = case.split()[0]
+        cases = [x for x in record if x["case"].split()[0] == prefix]
         by_path = {path: c[name] for path, c in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1558,6 +2085,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     print(json.dumps({"slice": slice_results, "serve": serve_results,
                       "recurrent": rec_results,
+                      "measures": measure_results,
                       "launches": paths,
                       "tiny_margin_rows": tiny_margin_rows,
                       "tiny_serve_margin_rows": tiny_serve_margin_rows,

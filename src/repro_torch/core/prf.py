@@ -90,6 +90,17 @@ def context_hash(window_tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def sliding_context_hashes(tokens, c: int) -> torch.Tensor:
+    """Per-position context hashes of whole sequences: tokens (..., S) ->
+    (..., S) words; position t hashes tokens[t-c:t], left-padded with
+    token 0."""
+    toks = torch.as_tensor(tokens)
+    S = toks.shape[-1]
+    padded = torch.nn.functional.pad(toks, (c, 0))
+    return context_hash(torch.stack([padded[..., i:i + S] for i in range(c)],
+                                    dim=-1))
+
+
 def as_key_word(key, device=None) -> torch.Tensor:
     """A python int, or word array/tensor, -> int64 key word tensor(s)."""
     w = words(key, device=device)
@@ -122,6 +133,17 @@ def gumbel_uniforms(key, ctx_hash, stream: int, vocab: int) -> torch.Tensor:
     seed = wm_seed(key, ctx_hash, stream)
     return kernel_uniform(seed, torch.arange(
         vocab, device=getattr(seed, "device", None)))
+
+
+def synthid_gbits(key, ctx_hash, stream: int, m: int,
+                  vocab: int) -> torch.Tensor:
+    """The m g-vectors of SynthID for one context: (m, vocab) in {0, 1},
+    g_l(w) = gbit(seed, w + vocab·l)."""
+    seed = wm_seed(key, ctx_hash, stream)
+    dev = getattr(seed, "device", None)
+    w = torch.arange(vocab, device=dev)
+    layers = torch.arange(m, device=dev)[:, None]
+    return kernel_gbit(seed, w[None, :] + vocab * layers)
 
 
 def accept_uniform(key, ctx_hash) -> torch.Tensor:

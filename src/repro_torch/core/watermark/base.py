@@ -14,6 +14,12 @@ finite-m SynthID draw also uses the race stream ``STREAM_PLAIN +
 wm_stream``), ``seen`` rows (repeated or strength-gated contexts) with a
 plain Gumbel race on the raw row under ``plain_stream``.  It runs on the
 ``kernels.ops`` wrappers, so on the card every token comes from a kernel.
+
+``modified_dist(probs (V,), key, ctx_hashes (n,), stream) -> (n, V)`` is
+P_ζ of one row under n contexts (the Monte-Carlo view of the strength
+and trade-off measures, batched over contexts), and ``recover_stats
+(tokens, key, ctx_hashes, stream, vocab)`` recovers y_t at detection
+time: (...,) when ``flat_stat`` (gumbel's U), else (..., stat_dim).
 """
 from __future__ import annotations
 
@@ -39,6 +45,14 @@ class FusedTail:
     m: int = 0
     stat_dim: int = 1
     degenerate: bool = False
+
+
+def one_hot(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(n,) tokens -> (n, vocab) f32 point masses (the modified
+    distribution of a degenerate scheme)."""
+    out = torch.zeros(tokens.shape + (vocab,), dtype=torch.float32,
+                      device=tokens.device)
+    return out.scatter_(-1, tokens[..., None], 1.0)
 
 
 def race_argmax(probs: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
@@ -70,6 +84,11 @@ class Decoder:
     token_stat: Optional[Callable] = None
     fused_tail: Optional[FusedTail] = None
     draft_sampler: Optional[Callable] = None
+    # (probs (V,), key, ctx_hashes (n,), stream) -> P_zeta (n, V)
+    modified_dist: Optional[Callable] = None
+    # (tokens (...,), key, ctx_hashes (...,), stream, vocab) -> y stats
+    recover_stats: Optional[Callable] = None
+    flat_stat: bool = True
 
 
 _REGISTRY: Dict[str, Callable[..., Decoder]] = {}

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import prf
 from repro_torch.core.watermark.base import (EPS, Decoder, FusedTail,
-                                             race_argmax, register)
+                                             one_hot, race_argmax, register)
 from repro_torch.kernels import ops, ref
 
 
@@ -45,6 +45,24 @@ def sample(probs, key, ctx_hash, stream=prf.STREAM_DRAFT, *, m=30,
     return tok, token_stat(g_seed, tok, V, m=m)
 
 
+def modified_dist(probs, key, ctx_hashes, stream=prf.STREAM_DRAFT, *, m=30,
+                  degenerate=False):
+    """P_ζ of one (V,) row under each of n contexts (n, V): the m rounds
+    of the normalised row (``ops.tournament``), or, degenerate, the
+    one-hot of their argmax (ties to the smaller index)."""
+    n, V = ctx_hashes.shape[0], probs.shape[-1]
+    pz = ops.tournament(_normalise(probs.float()).expand(n, V),
+                        prf.wm_seed(key, ctx_hashes, stream), m=m)
+    return one_hot(torch.argmax(pz, dim=-1), V) if degenerate else pz
+
+
+def recover_stats(tokens, key, ctx_hashes, stream, vocab: int, *, m=30):
+    """y_t, the m g-bits of each token, recovered from (key, context):
+    (..., m) f32."""
+    return token_stat(prf.wm_seed(key, ctx_hashes, stream), tokens, vocab,
+                      m=m)
+
+
 def draft_sampler(probs, keys, ctx_hashes, seen, *, wm_stream: int,
                   plain_stream: int, m: int, degenerate: bool):
     """Batched SynthID sampling through the kernels: the keyed tournament
@@ -69,7 +87,9 @@ def _make(m: int, degenerate: bool, name: str) -> Decoder:
         token_stat=partial(token_stat, m=m),
         fused_tail=FusedTail(kind="tournament", m=m, stat_dim=m,
                              degenerate=degenerate),
-        draft_sampler=partial(draft_sampler, m=m, degenerate=degenerate))
+        draft_sampler=partial(draft_sampler, m=m, degenerate=degenerate),
+        modified_dist=partial(modified_dist, m=m, degenerate=degenerate),
+        recover_stats=partial(recover_stats, m=m), flat_stat=False)
 
 
 @register("synthid")

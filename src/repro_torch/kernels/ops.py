@@ -6,8 +6,10 @@ current stream; a failed build or launch raises, and nothing routes a
 CUDA tensor to the plain version.  Any other device raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do
-not count); ``reset_launches`` zeroes it, so a caller can show that a run
-went through the kernels.
+not count; ``spec_verify_wm`` counts its race and its tournament branch
+apart, under ``spec_verify_wm`` and ``spec_verify_wm_tournament``);
+``reset_launches`` zeroes it, so a caller can show that a run went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -39,10 +41,13 @@ PAGED_PAGE_BYTES = 256 * 4 * 16
 WKV_HEAD_DIMS = (32, 64)
 SMEM_BLOCK_MAX = 227 * 1024
 
-LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0, "gumbel_argmax": 0,
+LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0,
+                            "spec_verify_wm_tournament": 0,
+                            "gumbel_argmax": 0,
                             "tournament_keyed": 0, "paged_attention": 0,
                             "wkv": 0, "wkv_step": 0, "ssd": 0,
-                            "ssd_step": 0}
+                            "ssd_step": 0, "tournament": 0,
+                            "spec_verify": 0}
 
 
 def reset_launches() -> None:
@@ -100,6 +105,22 @@ def gumbel_argmax(probs: torch.Tensor, seeds: torch.Tensor):
     return tok, u
 
 
+def tournament(probs: torch.Tensor, seeds: torch.Tensor, *, m: int):
+    """m SynthID rounds per (B, V) f32 row (not normalised here) with the
+    row's host seed (B,) int64 word -> the distribution (B, V) f32."""
+    if not _on_cuda(probs, seeds):
+        return ref.tournament_ref(probs, seeds, m=m)
+    B, V = probs.shape
+    probs = _arg(probs, torch.float32, (B, V), "probs")
+    seeds = _arg(seeds, torch.int64, (B,), "seeds")
+    out = torch.empty_like(probs)
+    smem = 4 * V if 4 * V <= SMEM_ROW_MAX else 0
+    rc = build.load().tournament_launch(
+        _ptr(probs), _ptr(seeds), B, V, m, smem, _ptr(out), _stream(probs))
+    _launched("tournament", rc)
+    return out
+
+
 def tournament_keyed(probs: torch.Tensor, keys: torch.Tensor,
                      ctx_hashes: torch.Tensor, *, stream: int, m: int):
     """m SynthID rounds per (B, V) f32 row (not normalised here), g-seed
@@ -120,6 +141,33 @@ def tournament_keyed(probs: torch.Tensor, keys: torch.Tensor,
         _ptr(out), _ptr(arg), _stream(probs))
     _launched("tournament_keyed", rc)
     return out, arg
+
+
+def spec_verify(p, q, tokens, u, resid_seeds):
+    """The unkeyed Alg. 1 verify: p, q (B, K, V) f32; tokens (B, K)
+    int64; u (B, K) f32 coins; resid_seeds (B, K) int64 words.  Returns
+    (n_acc (B,), prefix (B, K), the residual token (B,), its U (B,)) from
+    a Gumbel race over (p − q)_+ at slot min(n_acc, K − 1)."""
+    if not _on_cuda(p, q, tokens, u, resid_seeds):
+        return ref.spec_verify_ref(p, q, tokens, u, resid_seeds)
+    B, K, V = p.shape
+    if K < 1:
+        raise ValueError("spec_verify: needs K >= 1 drafted slots")
+    p = _arg(p, torch.float32, (B, K, V), "p")
+    q = _arg(q, torch.float32, (B, K, V), "q")
+    tokens = _arg(tokens, torch.int64, (B, K), "tokens")
+    u = _arg(u, torch.float32, (B, K), "u")
+    resid_seeds = _arg(resid_seeds, torch.int64, (B, K), "resid_seeds")
+    dev = p.device
+    n_acc = torch.empty(B, dtype=torch.int64, device=dev)
+    prefix = torch.empty((B, K), dtype=torch.int64, device=dev)
+    rtok = torch.empty(B, dtype=torch.int64, device=dev)
+    ru = torch.empty(B, dtype=torch.float32, device=dev)
+    rc = build.load().spec_verify_launch(
+        _ptr(p), _ptr(q), _ptr(tokens), _ptr(u), _ptr(resid_seeds), B, K, V,
+        _ptr(n_acc), _ptr(prefix), _ptr(rtok), _ptr(ru), _stream(p))
+    _launched("spec_verify", rc)
+    return n_acc, prefix, rtok, ru
 
 
 def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
@@ -171,7 +219,8 @@ def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
         _ptr(n_acc), _ptr(prefix), _ptr(etok), _ptr(estat),
         B, K, V, m, int(tournament), int(degenerate), stat_dim,
         *streams, _stream(p))
-    _launched("spec_verify_wm", rc)
+    _launched("spec_verify_wm_tournament" if tournament else
+              "spec_verify_wm", rc)
     return n_acc, prefix, etok, (estat if tournament else estat[:, 0])
 
 

@@ -54,6 +54,12 @@ def tournament_rounds(p: torch.Tensor, seeds: torch.Tensor, m: int):
     return p
 
 
+def tournament_ref(probs: torch.Tensor, seeds: torch.Tensor, *, m: int):
+    """probs (B, V) f32, seeds (B,) words -> the m unnormalised rounds
+    (B, V) with each row's host seed (``csrc/tournament.cu``)."""
+    return tournament_rounds(probs.float(), seeds, m)
+
+
 def tournament_keyed_ref(probs, keys, ctx_hashes, *, stream: int, m: int):
     """probs (B, V) f32, keys/ctx (B,) words -> (the m-round distribution
     (B, V), its argmax (B,)).  The g-seed is chain(chain(key, stream),
@@ -72,6 +78,22 @@ def accept_prefix(p, q, tokens, u):
     a = torch.clamp_max(pt / torch.clamp_min(qt, EPS), 1.0)
     prefix = torch.cumprod((u < a).to(torch.int64), dim=-1)
     return prefix, prefix.sum(-1)
+
+
+def spec_verify_ref(p, q, tokens, u, resid_seeds):
+    """The unkeyed Alg. 1 verify (``csrc/spec_verify.cu``): p, q (B, K, V)
+    f32; tokens (B, K); u (B, K); resid_seeds (B, K) words.  Returns
+    (n_acc (B,), prefix (B, K), the residual token (B,), its U (B,)): a
+    Gumbel race over (p − q)_+ at slot min(n_acc, K − 1) with that slot's
+    seed, so a row that accepts all K drafts still races slot K − 1, as
+    the reference kernel does."""
+    p, q = p.float(), q.float()
+    prefix, n_acc = accept_prefix(p, q, tokens, u)
+    rows = torch.arange(p.shape[0], device=p.device)
+    slot = torch.clamp_max(n_acc, tokens.shape[1] - 1)
+    r = torch.clamp_min(p[rows, slot] - q[rows, slot], 0.0)
+    rtok, ru = gumbel_argmax_ref(r, resid_seeds[rows, slot])
+    return n_acc, prefix, rtok, ru
 
 
 def tail_rows(p, q, n_acc, keys, ctx_hashes, seen, *, streams):

@@ -19,9 +19,9 @@ Combo rules enforced by ``validate()``:
   of silently ignoring it;
 - ``sync_every >= 1``, ``batch >= 1``, positive pool/chunk sizes.
 
-``mesh``, ``overlap=True`` and ``strength_controller`` are fields of the
-record (the surface is the reference's) but the port's ``Scheduler``
-raises ``NotImplementedError`` on them (ROADMAP items 14, 9 and 6).  The
+``mesh`` and ``overlap=True`` are fields of the record (the surface is
+the reference's) but the port's ``Scheduler`` raises
+``NotImplementedError`` on them (ROADMAP items 14 and 9).  The
 reference's ``shard_params`` only acts with a mesh and returns with it.
 """
 from __future__ import annotations

@@ -9,13 +9,16 @@ word until released.  Every word has an 8-hex **fingerprint**, the only
 identifier that leaves the serving process.  All of it is host-side
 Python over ``prf._chain`` on ints, so the words equal the reference's.
 
-``StrengthController`` (tier -> strength gamma on the trade-off curve)
-waits for ``core/tradeoff.py``; the port's ``Scheduler`` raises on it.
+``StrengthController`` maps a request's strength tier to the watermark
+strength γ it serves at, from the scheme's linear-class trade-off curve
+(``core.tradeoff``), computed once on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prf
@@ -128,3 +131,67 @@ class KeyPool:
     def known_words(self) -> List[int]:
         """Every word ever active or acquired here."""
         return sorted(set(self._seen.values()))
+
+
+# tier -> speculative-efficiency floor on the trade-off curve's x-axis:
+# "latency" stays close to plain speculative sampling speed, "assurance"
+# takes the maximal strength whatever the efficiency
+DEFAULT_TIERS: Dict[str, float] = {
+    "latency": 0.98,
+    "balanced": 0.92,
+    "assurance": 0.0,
+}
+
+
+@dataclasses.dataclass
+class StrengthController:
+    """Pick a request's watermark strength γ from its ``tier``: the
+    largest γ on the serving scheme's linear-class trade-off curve
+    (``tradeoff.linear_class_curve``, computed lazily once on ``device``)
+    whose efficiency meets the tier's floor, or the most efficient γ when
+    none does.  ``curve`` (a ``tradeoff.Curve`` or a zero-argument callable
+    returning one) injects a precomputed curve.  ``decoder_name="none"``
+    always gives 0."""
+
+    decoder_name: str = "gumbel"
+    tiers: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_TIERS))
+    curve: Optional[Callable] = None      # Curve or () -> Curve
+    n_seeds: int = 20_000                 # Monte-Carlo budget of the curve
+    n_gamma: int = 17
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self._curve = None
+        self._cache: Dict[str, float] = {}
+
+    def _get_curve(self):
+        if self._curve is None:
+            c = self.curve() if callable(self.curve) else self.curve
+            if c is None:
+                from repro_torch.core import tradeoff
+                c = tradeoff.linear_class_curve(
+                    self.decoder_name, n_seeds=self.n_seeds,
+                    n_gamma=self.n_gamma, device=self.device)
+            self._curve = c
+        return self._curve
+
+    def pick(self, tier: str) -> float:
+        """γ for ``tier``; an unknown tier raises (a typo must not serve
+        at the wrong strength)."""
+        if tier not in self.tiers:
+            raise ValueError(f"unknown strength tier {tier!r} — known: "
+                             f"{sorted(self.tiers)}")
+        if self.decoder_name == "none":
+            return 0.0
+        got = self._cache.get(tier)
+        if got is not None:
+            return got
+        curve = self._get_curve()
+        eff = np.asarray(curve.efficiency, np.float64)
+        gammas = np.asarray(curve.gammas, np.float64)
+        ok = eff >= float(self.tiers[tier])
+        gamma = float(gammas[ok].max() if ok.any()
+                      else gammas[int(np.argmax(eff))])
+        self._cache[tier] = gamma
+        return gamma

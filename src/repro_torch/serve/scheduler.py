@@ -41,8 +41,10 @@ each request is served under its own key word.
 The device work is eager PyTorch: admission, chunks and finalize are
 plain functions on the state's tensors (written in place), and each sync
 round reads the round's flags and the live slots' buffer rows to the host.
-Not ported, each raising ``NotImplementedError``: ``mesh=`` (ROADMAP item
-14), ``overlap=True`` (item 9) and ``strength_controller=`` (item 6).
+A ``strength_controller`` (``serve.keys.StrengthController``) resolves a
+request's ``tier`` to the strength γ of its slot at admission.  Not
+ported, each raising ``NotImplementedError``: ``mesh=`` (ROADMAP item 14)
+and ``overlap=True`` (item 9).
 """
 from __future__ import annotations
 
@@ -499,10 +501,6 @@ class Scheduler:
             raise NotImplementedError(
                 "Scheduler(overlap=True): the double-buffered loop is not "
                 "ported (ROADMAP item 9)")
-        if strength_controller is not None:
-            raise NotImplementedError(
-                "Scheduler(strength_controller=...): StrengthController "
-                "waits for core/tradeoff.py (ROADMAP item 6)")
         self.t_model, self.d_model = t_model, d_model
         self.tcfg, self.dcfg, self.scfg = t_model.cfg, d_model.cfg, scfg
         self.dev = t_model.embed.device
@@ -513,6 +511,7 @@ class Scheduler:
         # serves under the scheduler key
         self.key_word = _word_of(key)
         self.key_pool = key_pool
+        self.strength_controller = strength_controller
         self._slot_key: List[int] = [self.key_word] * batch
         self._slot_strength: List[float] = [1.0] * batch
         self._slot_tier: List[Optional[str]] = [None] * batch
@@ -687,16 +686,21 @@ class Scheduler:
         self._arm_buffers(b, sub, n_tok_b)
 
     def _resolve_key(self, req: Request, b: int) -> None:
-        """Assign the request's serving key word and strength to slot
+        """Assign the request's serving key word and strength γ to slot
         ``b``: an explicit ``Request.key``, the pool's least-loaded active
-        word, or the scheduler default.  A tier needs a strength
-        controller, which is not ported; it raises before any pool
-        reference is taken, so a failure leaves the scheduler as it
+        word, or the scheduler default; a ``tier`` goes through the
+        strength controller (γ = 1 without one).  The tier resolves (and
+        may raise, on an unknown tier or a missing controller) before any
+        pool reference is taken, so a failure leaves the scheduler as it
         was."""
+        gamma = 1.0
         if req.tier is not None:
-            raise ValueError(
-                f"request uid={req.uid} names strength tier {req.tier!r} "
-                "but the scheduler was built without a strength_controller")
+            if self.strength_controller is None:
+                raise ValueError(
+                    f"request uid={req.uid} names strength tier "
+                    f"{req.tier!r} but the scheduler was built without a "
+                    "strength_controller")
+            gamma = float(self.strength_controller.pick(req.tier))
         pooled = False
         if self.key_pool is not None:
             word = self.key_pool.acquire(req.key)
@@ -706,7 +710,7 @@ class Scheduler:
         else:
             word = self.key_word
         self._slot_key[b] = word
-        self._slot_strength[b] = 1.0
+        self._slot_strength[b] = gamma
         self._slot_tier[b] = req.tier
         self._slot_pooled[b] = pooled
 

@@ -8,8 +8,9 @@ package, so it runs where only PyTorch is installed:
 
 Tolerances as in test_torch_kernels.py: integers exact, race tokens equal
 outside margin rows (best two scores within 1e-5 relative), tournament
-distributions within rtol=1e-4, atol=1e-7 (another order of float sums
-over up to 256128 entries and 30 rounds).  Paged attention: float32
+distributions (the keyed and the unkeyed tournament) within rtol=1e-4,
+atol=1e-7 (another order of float sums over up to 256128 entries and 30
+rounds).  Paged attention: float32
 within 1e-5 (another order of float sums); bfloat16 within
 ref.paged_attention_tol, per element: two bf16 ulps of the element plus
 two flips of the row's worst score or probability rounding (another sum
@@ -89,10 +90,13 @@ def test_kernels_match_plain_versions(cuda, V):
         same = tk == tr
         assert torch.equal(sk[same], sr[same])
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"spec_verify_wm": 3, "gumbel_argmax": 1,
+    assert ops.LAUNCHES == {"spec_verify_wm": 1,
+                            "spec_verify_wm_tournament": 2,
+                            "gumbel_argmax": 1,
                             "tournament_keyed": 1, "paged_attention": 0,
                             "wkv": 0, "wkv_step": 0, "ssd": 0,
-                            "ssd_step": 0}
+                            "ssd_step": 0, "tournament": 0,
+                            "spec_verify": 0}
 
 
 @pytest.mark.gpu
@@ -284,3 +288,54 @@ def test_recurrent_wrappers_reject_what_the_kernels_do_not_take(cuda):
                 torch.zeros((2, 300, 256), device=cuda),
                 torch.zeros((2, 300, 256), device=cuda),
                 torch.zeros((2, 3, 256, 256), device=cuda), chunk=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,V", [(4, 32000), (8, 4096), (2048, 10),
+                                 (2, 256128)])
+def test_tournament_matches_plain_version(cuda, B, V):
+    g = torch.Generator(device=cuda).manual_seed(B + V)
+    probs = torch.softmax(torch.randn((B, V), generator=g, device=cuda) * 3,
+                          -1)
+    seeds = torch.randint(0, 2**32, (B,), generator=g, device=cuda)
+    ops.reset_launches()
+    got = ops.tournament(probs, seeds, m=30)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tournament"] == 1
+    want = ref.tournament_ref(probs, seeds, m=30)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-7)
+    # fewer rounds or another seed row is far outside that tolerance (a
+    # 10-entry row may have collapsed to a fixed point by round 29)
+    for bad in (ref.tournament_ref(probs, seeds, m=29),
+                ref.tournament_ref(probs, seeds.roll(1), m=30)):
+        assert V < 4096 or not torch.allclose(got, bad, rtol=1e-4,
+                                              atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,V", [(4, 4, 32000), (8, 4, 4096), (3, 1, 96)])
+def test_spec_verify_matches_plain_version(cuda, B, K, V):
+    g = torch.Generator(device=cuda).manual_seed(B * K + V)
+    lp = torch.randn((B, K, V), generator=g, device=cuda) * 3
+    p = torch.softmax(lp, -1)
+    q = torch.softmax(lp + torch.randn((B, K, V), generator=g, device=cuda),
+                      -1)
+    toks = torch.multinomial(q.reshape(B * K, V), 1,
+                             generator=g).reshape(B, K)
+    u = torch.rand((B, K), generator=g, device=cuda)
+    u[0] = 0.0                       # all accepted: slot K-1 still races
+    seeds = torch.randint(0, 2**32, (B, K), generator=g, device=cuda)
+    ops.reset_launches()
+    nk, pk, tk, uk = ops.spec_verify(p, q, toks, u, seeds)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spec_verify"] == 1
+    nr, pr, tr, ur = ref.spec_verify_ref(p, q, toks, u, seeds)
+    assert torch.equal(nk, nr) and torch.equal(pk, pr)
+    assert int(nk[0]) == K
+    rows = torch.arange(B, device=cuda)
+    slot = nr.clamp_max(K - 1)
+    r = (p[rows, slot] - q[rows, slot]).clamp_min(0.0)
+    marg = ref.margin(ref.race_scores(r, seeds[rows, slot])[0])
+    same = tk == tr
+    assert bool((same | (marg < MARGIN)).all())
+    assert torch.equal(uk[same], ur[same])

@@ -298,8 +298,7 @@ def test_key_pool_and_config_match_reference():
 def test_unported_options_raise(pair):
     _, _, tm, dm = pair
     scfg = TE.SpecConfig(K=3)
-    for kw in (dict(mesh=object()), dict(overlap=True),
-               dict(strength_controller=object())):
+    for kw in (dict(mesh=object()), dict(overlap=True)):
         with pytest.raises(NotImplementedError):
             TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4, **kw)
     with pytest.raises(NotImplementedError):
