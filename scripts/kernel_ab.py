@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time the paged-attention and keyed-tournament kernels of two checkouts
+on one CUDA card.
+
+    python3 scripts/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT
+
+Runs each checkout in the order old, new, new, old, one process each, its
+kernels built from that checkout's sources: the checkout's own
+``chip_smoke.phase_paged_kernel`` (phase 2b) and keyed-tournament checks
+(phase 2), then, for every case of NEW's phase 2b and NEW's keyed
+tournament shapes that the checkout's own checks did not time, the
+checkout's kernel on NEW's inputs (the same seeds, so every case sees the
+same tensors in both checkouts; "refused" where the checkout's wrapper
+raises on them).  Prints one JSON line per run, then one line per case:
+the kernel's ms in the four runs.  Compare the two versions only within
+one such call: the card's clocks and the host differ between calls.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+RUN = r"""
+import importlib.util, inspect, json, sys
+root, new_root = sys.argv[1], sys.argv[2]
+sys.path[:0] = [root + "/src", root]
+import chip_smoke
+spec = importlib.util.spec_from_file_location("new_smoke",
+                                              new_root + "/chip_smoke.py")
+new = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(new)
+import torch
+from repro_torch.kernels import build, ops
+build.load()
+ms, plain, library = {}, {}, {}
+for r in chip_smoke.phase_paged_kernel():
+    ms[r["case"]] = r["ms"]
+    plain[r["case"]] = r["plain_ms"]
+    library[r["case"]] = r.get("library_ms")
+rec = []
+if "B" in inspect.signature(chip_smoke.check_tournament).parameters:
+    for B, V in chip_smoke.TOURNAMENT_KEYED_SHAPES:
+        chip_smoke.check_tournament(B, V, rec)
+else:                                   # one B=4 check per vocabulary
+    for V in (32000, 256128):
+        chip_smoke.check_tournament(V, rec)
+for r in rec:
+    case = r["case"]
+    if " B=" not in case:
+        case = case.replace("tournament_keyed ", "tournament_keyed B=4 ")
+    ms[case] = r["ms"]
+    plain[case] = r["plain_ms"]
+for name, B, Sq, H, Hkv, hd, ps, pos_range in new.PAGED_CASES:
+    for dtype in (torch.bfloat16, torch.float32):
+        case = f"paged_attention {name} {str(dtype)[6:]}"
+        if case in ms:
+            continue
+        args = new.paged_inputs(B, Sq, H, Hkv, hd, ps, pos_range, dtype,
+                                seed=B * Sq * H)
+        try:
+            ops.paged_attention(*args)
+        except ValueError:
+            ms[case] = "refused"
+            continue
+        ms[case] = chip_smoke.device_ms(lambda: ops.paged_attention(*args),
+                                        kernel="paged_attention_kernel")
+for B, V in new.TOURNAMENT_KEYED_SHAPES:
+    case = f"tournament_keyed B={B} V={V}"
+    if case in ms:
+        continue
+    probs, keys, ctx = new.tournament_inputs(B, V)
+    ms[case] = chip_smoke.device_ms(
+        lambda: ops.tournament_keyed(probs, keys, ctx, stream=0xD0, m=30),
+        kernel="tournament_keyed_kernel")
+print("AB " + json.dumps({"checkout": root, "ms": ms, "plain_ms": plain,
+                          "library_ms": library}))
+"""
+
+
+def main(old: str, new: str) -> int:
+    runs = []
+    for root in (old, new, new, old):
+        out = subprocess.run([sys.executable, "-c", RUN, root, new],
+                             capture_output=True, text=True)
+        if out.returncode:
+            print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        line = [x for x in out.stdout.splitlines() if x.startswith("AB ")]
+        runs.append(json.loads(line[-1][3:]))
+        print(line[-1][3:])
+    for case in runs[1]["ms"]:
+        print(json.dumps({"case": case, "ms old, new, new, old": [
+            r["ms"].get(case) for r in runs]}))
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        sys.exit(__doc__)
+    sys.exit(main(sys.argv[1], sys.argv[2]))

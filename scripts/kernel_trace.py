@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Where a block's time goes in the paged-attention and keyed-tournament
+kernels, on one CUDA card.
+
+    python3 scripts/kernel_trace.py
+
+Builds a traced copy of ``csrc/paged_attention.cu`` and of
+``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``) into
+``build/kernel_trace/``: thread 0 of every block writes ``%globaltimer``
+at the marks below.  Runs each at ``chip_smoke.PAGED_CASES`` (bf16) and
+``chip_smoke.TOURNAMENT_KEYED_SHAPES`` and prints one JSON line per case:
+the span of the launch, the median life of a block, the quartiles of the
+blocks' start times (how many waves), and the median time between
+consecutive marks.  The traced copies only add the marks (one global
+store each): their outputs must equal the product kernels' bit for bit,
+and the script fails otherwise, or if a mark's anchor is no longer in
+the source.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
+OUT = ROOT / "build/kernel_trace"
+MAX_BLOCKS = 8192
+
+TRACE_DECL = r"""
+__device__ unsigned long long trace_buf[8192 * 16];
+extern "C" int trace_get(void *dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, trace_buf, (size_t)n * 8);
+}
+#define MARK(n)                                                              \
+  do {                                                                       \
+    if (threadIdx.x == 0) {                                                  \
+      unsigned long long t_;                                                 \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                 \
+      const unsigned b_ =                                                    \
+          blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);    \
+      if (b_ < 8192) trace_buf[b_ * 16 + (n)] = t_;                          \
+    }                                                                        \
+  } while (0)
+"""
+
+# (mark, anchor): MARK(n) goes right after the anchor's text
+PAGED_MARKS = [
+    (0, "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"),
+    (1, "issue_with(i, [&](int u, int, int, int) { return pre[i][u]; });\n"
+        "  }\n"),
+    (2, "    s_q[e] = x;\n  }\n"),
+    (3, "        mo = nm;\n      }\n    }\n  }\n"),
+    (4, "    l += s_xsum[c][warp] * expf(s_xmax[c][warp] - M);\n"),
+    (5, "      *sp = round_to<T>(expf(*sp - M) / l);\n    }\n"),
+    (6, "        for (int e = 0; e < PER; ++e) acc[u][e] = fmaf(pj, f[e], "
+        "acc[u][e]);\n      }\n    }\n  }\n"),
+    (7, "    *cluster.map_shared_rank(s_recv + rank * hd + o % hd, o / hd) = "
+        "s;\n  }\n"),
+    (8, "  cluster.sync();\n  // my row: the members' partials in member "
+        "order\n"),
+    (9, "      out[(((size_t)b * a.Sq + i) * a.H + h) * hd + d] = "
+        "from_f<T>(s);\n    }\n  }\n"),
+]
+PAGED_PHASES = ["start, pages of the first tiles, copies issued",
+                "q and the later pages staged", "pass one",
+                "exchange of (m_c, l_c), cluster barrier",
+                "probabilities of kept scores", "pass two",
+                "partial outputs pushed", "cluster barrier", "output"]
+TOURNAMENT_MARKS = [
+    (0, "  const int lane = tid & 31, warp = tid >> 5, nw = NT >> 5;\n"),
+    (1, "  cluster.sync();\n  uint64_t bits"),
+    (2, "    bits = next;\n  }\n"),
+]
+TOURNAMENT_PHASES = ["mbarrier set-up, cluster barrier",
+                     "round 0's bits, then the m rounds"]
+
+
+def instrument(text: str, marks) -> str:
+    for n, anchor in marks:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"kernel_trace: anchor of mark {n} not found "
+                             f"once: {anchor!r}")
+        if anchor.endswith("uint64_t bits"):   # mark before the anchor's tail
+            head = anchor[:-len("uint64_t bits")]
+            text = text.replace(anchor, f"{head}MARK({n});\n  uint64_t bits")
+        else:
+            text = text.replace(anchor, f"{anchor}  MARK({n});\n")
+    return text
+
+
+def build_traced(name: str, source: Path, marks, header=None) -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    OUT.mkdir(parents=True, exist_ok=True)
+    text = source.read_text()
+    if header is None:
+        text = text.replace("namespace cg = cooperative_groups;\n",
+                            "namespace cg = cooperative_groups;\n"
+                            + TRACE_DECL, 1)
+        text = instrument(text, marks)
+    else:
+        hdr = (CSRC / header).read_text()
+        hdr = hdr.replace("#include \"prf.cuh\"\n",
+                          "#include \"prf.cuh\"\n" + TRACE_DECL, 1)
+        (OUT / header).write_text(instrument(hdr, marks))
+    cu = OUT / f"{name}.cu"
+    cu.write_text(text)
+    so = OUT / f"lib{name}.so"
+    res = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(OUT), "-I", str(CSRC),
+         "-shared", "-o", str(so), str(cu)], capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(f"kernel_trace: nvcc failed on {name}:\n"
+                         f"{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fn in ("paged_attention_launch", "tournament_keyed_launch"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+    return lib
+
+
+def report(lib, n_blocks: int, phases) -> dict:
+    n = min(n_blocks, MAX_BLOCKS)
+    buf = np.zeros(n * 16, dtype=np.uint64)
+    if lib.trace_get(ctypes.c_void_p(buf.ctypes.data), n * 16):
+        raise SystemExit("kernel_trace: reading the marks failed")
+    t = buf.reshape(n, 16)[:, :len(phases) + 1].astype(np.int64)
+    start = t[:, 0] - t[:, 0].min()
+    return dict(
+        span_us=float(t[:, -1].max() - t[:, 0].min()) / 1e3,
+        block_life_us=float(np.median(t[:, -1] - t[:, 0])) / 1e3,
+        start_quartiles_us=[float(np.quantile(start, x)) / 1e3
+                            for x in (0.25, 0.5, 0.75, 1.0)],
+        phases_us={p: float(np.median(t[:, i + 1] - t[:, i])) / 1e3
+                   for i, p in enumerate(phases)})
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_trace: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+    build.load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"device: {smi}")
+    pa = build_traced("paged_attention_traced", CSRC / "paged_attention.cu",
+                      PAGED_MARKS)
+    for name, B, Sq, H, Hkv, hd, ps, pos_range in cs.PAGED_CASES:
+        args = cs.paged_inputs(B, Sq, H, Hkv, hd, ps, pos_range,
+                               torch.bfloat16, seed=B * Sq * H)
+        q, k, v, table, pos = args
+        want = ops.paged_attention(*args)
+        got = torch.empty_like(want)
+        rc = pa.paged_attention_launch(
+            ops._ptr(q), ops._ptr(k), ops._ptr(v), ops._ptr(table),
+            ops._ptr(pos), ops._ptr(got), B, Sq, H, Hkv, hd, ps,
+            table.shape[1], 1, 1.0 / hd ** 0.5, ops._stream(q))
+        torch.cuda.synchronize()
+        if rc or not torch.equal(got, want):
+            raise SystemExit(f"kernel_trace: traced paged {name} differs")
+        n_blocks = -(-Sq * (H // Hkv) // 8) * 8 * Hkv * B
+        print(json.dumps(dict(kernel="paged_attention", case=name,
+                              **report(pa, n_blocks, PAGED_PHASES))))
+    tk = build_traced("tournament_keyed_traced", CSRC / "tournament_keyed.cu",
+                      TOURNAMENT_MARKS, header="cluster_tournament.cuh")
+    for B, V in cs.TOURNAMENT_KEYED_SHAPES:
+        probs, keys, ctx = cs.tournament_inputs(B, V)
+        want, want_arg = ops.tournament_keyed(probs, keys, ctx, stream=0xD0,
+                                              m=30)
+        got, arg = torch.empty_like(want), torch.empty_like(want_arg)
+        rc = tk.tournament_keyed_launch(
+            ops._ptr(probs), ops._ptr(keys), ops._ptr(ctx), B, V, 30, 0xD0,
+            ops._ptr(got), ops._ptr(arg), ops._stream(probs))
+        torch.cuda.synchronize()
+        if rc or not (torch.equal(got, want) and torch.equal(arg, want_arg)):
+            raise SystemExit(f"kernel_trace: traced tournament B={B} V={V} "
+                             "differs")
+        print(json.dumps(dict(kernel="tournament_keyed", case=f"B={B} V={V}",
+                              **report(tk, 8 * B, TOURNAMENT_PHASES))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

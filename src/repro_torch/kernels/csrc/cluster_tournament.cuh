@@ -1,0 +1,194 @@
+// One SynthID tournament row split over a thread-block cluster.
+//
+// m rounds p <- p·((1 + g) − Σ p·g), g = gbit(seed, w + V·l), over a row
+// of V entries held by the C blocks of one cluster: block `rank` owns the
+// contiguous slice [lo, hi) of ct_slice, thread t the entries lo + t,
+// lo + t + blockDim.x, ...  Each round needs the whole row's mass first,
+// so the rounds are serial; what a round costs is its share of the m·V
+// g-bit hashes (split over C SMs instead of one) and one exchange of C
+// partial masses.
+//
+// Each g-bit is hashed once: a round's bits of a thread's first CT_BITS
+// entries stay in a register bit mask between the mass and the update
+// (entries past that are hashed again in the update; none are at C=8 up
+// to V=524288 with 1024 threads), and the next round's bits are hashed
+// while the partial masses travel.  The block's partial mass (its
+// threads' sums in entry order, the warps' butterflies, then warp 0's
+// butterfly over the warps) goes to every member with st.async, which
+// completes its bytes on the receiver's mbarrier; each member waits on
+// its own mbarrier for the C partials (no cluster-wide barrier a round)
+// and adds them in member order 0..C-1, so all members hold the same mass
+// bit for bit.  Partials and mbarriers are double-buffered by round
+// parity: a member sends round l + 2's partial only after it has all of
+// round l + 1's, which every member sends after reading round l's.  The
+// sums depend only on V, C and blockDim.x, never on the number of rows or
+// the SM count.
+//
+// Used by tournament_keyed.cu; spec_verify_wm.cu's tournament branch and
+// tournament.cu still run block_tournament (prf.cuh), one block per row.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "prf.cuh"
+
+#define CT_MAX_CLUSTER 8                // the portable cluster size
+#define CT_BITS 64
+
+struct ClusterTournamentShared {
+  unsigned long long mbar[2];     // one mbarrier per round parity
+  float part[2][CT_MAX_CLUSTER];  // partial masses, by round parity
+  float warp[32];                 // the block's warp sums
+  float best_s[CT_MAX_CLUSTER];   // each member's argmax, at member 0
+  int best_i[CT_MAX_CLUSTER];
+};
+
+__device__ __forceinline__ void ct_slice(int V, int C, int rank, int &lo,
+                                         int &hi) {
+  const int L = (V + C - 1) / C;
+  lo = min(V, rank * L);
+  hi = min(V, lo + L);
+}
+
+__device__ __forceinline__ unsigned ct_smem(const void *p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned ct_mapa(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void ct_st_async(unsigned raddr, float v,
+                                            unsigned rmbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(raddr), "f"(v), "r"(rmbar)
+      : "memory");
+}
+__device__ __forceinline__ void ct_mbar_init(unsigned a, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void ct_mbar_expect(unsigned a, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(a),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool ct_mbar_try(unsigned a, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred P;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, P;\n}\n"
+      : "=r"(ok)
+      : "r"(a), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// this thread's g-bits of round l for its first CT_BITS entries
+__device__ __forceinline__ uint64_t ct_bits(int lo, int hi, int V, int l,
+                                            uint32_t seed) {
+  const uint32_t off = (uint32_t)V * (uint32_t)l;
+  uint64_t bits = 0;
+  int k = 0;
+  for (int w = lo + threadIdx.x; w < hi && k < CT_BITS;
+       w += blockDim.x, ++k)
+    bits |= (uint64_t)(seed_chain(seed, (uint32_t)w + off) >> 31) << k;
+  return bits;
+}
+
+__device__ __forceinline__ float ct_g(uint64_t bits, int k, uint32_t seed,
+                                      uint32_t ctr) {
+  return k < CT_BITS ? (float)((bits >> k) & 1u) : prf_gbit(seed, ctr);
+}
+
+// m rounds in place over this block's slice row[0, hi − lo) (shared or
+// global memory, this thread's entries only).  Every thread of every
+// block of the cluster must call it; it starts with a cluster barrier
+// (after the mbarriers are set up), so no member is written to before it
+// runs.
+__device__ __forceinline__ void cluster_tournament(
+    float *row, int lo, int hi, int V, int m, uint32_t seed,
+    ClusterTournamentShared &sh) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = NT >> 5;
+  if (tid == 0) {
+    ct_mbar_init(ct_smem(&sh.mbar[0]), 1);
+    ct_mbar_init(ct_smem(&sh.mbar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();
+  uint64_t bits = m > 0 ? ct_bits(lo, hi, V, 0, seed) : 0;
+  float part = 0.f;
+  {
+    int k = 0;
+    for (int w = lo + tid; w < hi; w += NT, ++k)
+      part += row[w - lo] * ct_g(bits, k, seed, (uint32_t)w);
+  }
+  for (int l = 0; l < m; ++l) {
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (lane == 0) sh.warp[warp] = part;
+    __syncthreads();
+    if (warp == 0) {
+      float v = lane < nw ? sh.warp[lane] : 0.f;
+      for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane < C)
+        ct_st_async(ct_mapa(ct_smem(&sh.part[l & 1][rank]), lane), v,
+                    ct_mapa(ct_smem(&sh.mbar[l & 1]), lane));
+    }
+    if (tid == 0) ct_mbar_expect(ct_smem(&sh.mbar[l & 1]), 4 * C);
+    const uint64_t next = l + 1 < m ? ct_bits(lo, hi, V, l + 1, seed) : 0;
+    while (!ct_mbar_try(ct_smem(&sh.mbar[l & 1]), (l >> 1) & 1)) {
+    }
+    float mass = 0.f;
+    for (int c = 0; c < C; ++c) mass += sh.part[l & 1][c];
+    const uint32_t off = (uint32_t)V * (uint32_t)l;
+    const uint32_t off_n = off + (uint32_t)V;
+    part = 0.f;
+    int k = 0;
+    for (int w = lo + tid; w < hi; w += NT, ++k) {
+      const float g = ct_g(bits, k, seed, (uint32_t)w + off);
+      const float p = row[w - lo] * ((1.0f + g) - mass);
+      row[w - lo] = p;
+      if (l + 1 < m) part += p * ct_g(next, k, seed, (uint32_t)w + off_n);
+    }
+    bits = next;
+  }
+}
+
+// The argmax of the final row over the cluster (ties to the smaller
+// index): each block's winner goes to member 0, which returns the
+// cluster's in `best` (other members' value is unspecified).  Every
+// thread of every block must call it.
+__device__ __forceinline__ int cluster_argmax(const float *row, int lo,
+                                              int hi,
+                                              ClusterTournamentShared &sh) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  float best = -INFINITY;
+  int bi = INT_MAX;
+  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
+    arg_better(row[w - lo], w, best, bi);
+  block_argmax(best, bi);
+  if (threadIdx.x == 0) {
+    const unsigned rank = cluster.block_rank();
+    *cluster.map_shared_rank(&sh.best_s[rank], 0u) = best;
+    *cluster.map_shared_rank(&sh.best_i[rank], 0u) = bi;
+  }
+  cluster.sync();
+  best = -INFINITY;
+  bi = INT_MAX;
+  for (int c = 0; c < C; ++c) arg_better(sh.best_s[c], sh.best_i[c], best, bi);
+  return bi;
+}

@@ -7,17 +7,35 @@
 //
 // Replaces: src/repro/kernels/tournament.py::tournament_keyed_kernel.
 //
-// Bound: one read and one write of the row, 8·B·V bytes (1 MB at B=4,
-// V=32000: 0.3 us at 3.35 TB/s), and m·V g-bit hashes per row; each round
-// needs the full-row mass first, so the m rounds are serial.  Design: one
-// block per row keeps the row in dynamic shared memory (128 KB at
-// V=32000) across all m rounds when it fits; past that (Gemma's V=256128,
-// 1 MB) the output row itself is the working buffer and stays in L2.  Only
-// B of 132 SMs work; a split-row design with a cluster-wide mass is the
-// next step.
+// Bound: operations.  Its bytes are one read and one write of the row,
+// 8·B·V (1 MB at B=4, V=32000: 0.3 us at 3.35 TB/s); its work is m·V
+// g-bit hashes a row (about 18 integer operations each, 0.96 M hashes a
+// row at V=32000, m=30), and each round needs the whole row's mass before
+// it can update, so the m rounds of a row are serial.  The first port ran
+// one 1024-thread block per row: B=4 rows kept 4 of 132 SMs busy, hashed
+// every g-bit twice a round and paid two block barriers a round (0.27 ms,
+// one SM's integer rate).
+//
+// Design: one cluster of TK_CLUSTER = 8 blocks per row (16, with the
+// non-portable opt-in, was faster at B=4 but not all of B=8's clusters fit
+// the card at once), each block a contiguous slice of V held in dynamic
+// shared memory (128 KB at V=256128) or, past TK_SMEM_MAX, in the output
+// row itself; cluster_tournament
+// (cluster_tournament.cuh) hashes each g-bit once and sends the C partial
+// masses of a round through distributed shared memory (st.async onto each
+// member's mbarrier, no cluster-wide barrier a round); the final argmax is
+// taken across the cluster.  The block is the slice rounded up to a warp,
+// at most 1024 threads.  A row's arithmetic depends on V and the cluster
+// size only, not on B.  What bounds it now: at V=32000 each of the 30
+// rounds is a chain of a block reduction and a one-way exchange between
+// SMs (about 2 us); at V=256128 the hashing, 32016 g-bits a block a
+// round.
 #include <cuda_runtime.h>
 
-#include "prf.cuh"
+#include "cluster_tournament.cuh"
+
+#define TK_CLUSTER 8                 // blocks a row; fixes the sum order
+#define TK_SMEM_MAX (200 * 1024)     // a slice in shared memory up to this
 
 __global__ void __launch_bounds__(REPRO_THREADS)
 tournament_keyed_kernel(const float *__restrict__ probs,
@@ -26,37 +44,59 @@ tournament_keyed_kernel(const float *__restrict__ probs,
                         uint32_t stream, int use_smem,
                         float *__restrict__ out, long long *__restrict__ arg) {
   extern __shared__ float smem_row[];
-  const int b = blockIdx.x;
+  __shared__ ClusterTournamentShared sh;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
   const uint32_t seed =
       seed_chain(seed_chain((uint32_t)keys[b], stream), (uint32_t)ctx[b]);
+  int lo, hi;
+  ct_slice(V, C, rank, lo, hi);
   const float *src = probs + (size_t)b * V;
   float *dst = out + (size_t)b * V;
-  float *row = use_smem ? smem_row : dst;
-  for (int w = threadIdx.x; w < V; w += blockDim.x) row[w] = src[w];
-  block_tournament(row, V, m, seed);
-  float best = -INFINITY;
-  int bi = INT_MAX;
-  for (int w = threadIdx.x; w < V; w += blockDim.x) {
-    if (use_smem) dst[w] = row[w];
-    arg_better(row[w], w, best, bi);
-  }
+  float *row = use_smem ? smem_row : dst + lo;
+  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x) row[w - lo] = src[w];
+  cluster_tournament(row, lo, hi, V, m, seed, sh);
+  if (use_smem)
+    for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
+      dst[w] = row[w - lo];
   if (arg != nullptr) {
-    block_argmax(best, bi);
-    if (threadIdx.x == 0) arg[b] = bi;
+    const int bi = cluster_argmax(row, lo, hi, sh);
+    if (rank == 0 && threadIdx.x == 0) arg[b] = bi;
   }
 }
 
-// smem_bytes == 0 selects the in-place global-memory row.
+// One cluster of TK_CLUSTER blocks per row, each with its slice of the
+// row in shared memory when the slice fits TK_SMEM_MAX, else in `out`.
 extern "C" int tournament_keyed_launch(const void *probs, const void *keys,
                                        const void *ctx, int B, int V, int m,
-                                       unsigned int stream_id, int smem_bytes,
-                                       void *out, void *arg, void *stream) {
+                                       unsigned int stream_id, void *out,
+                                       void *arg, void *stream) {
+  const int slice = (V + TK_CLUSTER - 1) / TK_CLUSTER;
+  const int smem_bytes = 4 * slice <= TK_SMEM_MAX ? 4 * slice : 0;
   cudaError_t e = allow_smem(tournament_keyed_kernel, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  tournament_keyed_kernel<<<B, REPRO_THREADS, smem_bytes,
-                            (cudaStream_t)stream>>>(
-      (const float *)probs, (const long long *)keys, (const long long *)ctx,
-      V, m, (uint32_t)stream_id, smem_bytes > 0, (float *)out,
-      (long long *)arg);
+  const int threads =
+      slice >= REPRO_THREADS ? REPRO_THREADS : ((slice + 31) / 32) * 32;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * TK_CLUSTER);
+  cfg.blockDim = dim3(threads > 0 ? threads : 32);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = TK_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, tournament_keyed_kernel,
+                         (const float *)probs, (const long long *)keys,
+                         (const long long *)ctx, V, m, (uint32_t)stream_id,
+                         smem_bytes > 0 ? 1 : 0, (float *)out,
+                         (long long *)arg);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@
 // Replaces: src/repro/kernels/wkv.py::wkv_step_kernel (every decode step
 // of an RWKV6 draft or target, one launch per layer).
 //
-// Design: grid (H, B), one block of hd threads per (b, h); thread j owns
+// Design (head sizes 16, 32, 64, 128, one instantiation each; no spills
+// at any): grid (H, B), one block of hd threads per (b, h); thread j owns
 // value column j of the state and walks the key axis i = 0..hd-1 in order,
 // reading row i of the state (hd consecutive floats across the block: one
 // coalesced load per i) and writing row i of the new state.  r, k, u and w
@@ -69,8 +70,10 @@ static int launch(const void *r, const void *k, const void *v,
         (const T *)u, (const float *)s0, (float *)y, (float *)s1, H);        \
     break;
   switch (hd) {
+    WKV_STEP_CASE(16)
     WKV_STEP_CASE(32)
     WKV_STEP_CASE(64)
+    WKV_STEP_CASE(128)
   default:
     return (int)cudaErrorInvalidValue;
   }

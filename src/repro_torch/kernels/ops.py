@@ -31,14 +31,14 @@ DEFAULT_STREAMS = (_prf.STREAM_TARGET, _prf.STREAM_PLAIN + 2,
 # a working row of 4·V bytes lives in shared memory up to this size
 # (V <= 51200); past it the kernels keep the row in device memory
 SMEM_ROW_MAX = 200 * 1024
-# the paged-attention kernel's 256 threads hold one page of one kv head in
-# flight, four 16-byte vectors each (PA_THREADS · PA_INFLIGHT · 16)
-PAGED_PAGE_BYTES = 256 * 4 * 16
+# the paged-attention kernel's head sizes: multiples of 8 (16-byte bf16
+# vectors) up to 256 (csrc/paged_attention.cu's PA_MAX_HD)
+PAGED_MAX_HD = 256
 
 # the recurrent kernels' head sizes (one instantiation each for the WKV
 # kernels, whose threads keep a state column in registers) and the shared
 # memory a block may opt into on sm_90
-WKV_HEAD_DIMS = (32, 64)
+WKV_HEAD_DIMS = (16, 32, 64, 128)
 SMEM_BLOCK_MAX = 227 * 1024
 
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0,
@@ -135,9 +135,8 @@ def tournament_keyed(probs: torch.Tensor, keys: torch.Tensor,
     ctx_hashes = _arg(ctx_hashes, torch.int64, (B,), "ctx_hashes")
     out = torch.empty_like(probs)
     arg = torch.empty(B, dtype=torch.int64, device=probs.device)
-    smem = 4 * V if 4 * V <= SMEM_ROW_MAX else 0
     rc = build.load().tournament_keyed_launch(
-        _ptr(probs), _ptr(keys), _ptr(ctx_hashes), B, V, m, stream, smem,
+        _ptr(probs), _ptr(keys), _ptr(ctx_hashes), B, V, m, stream,
         _ptr(out), _ptr(arg), _stream(probs))
     _launched("tournament_keyed", rc)
     return out, arg
@@ -232,9 +231,7 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
     hd) in the pool's type.  The kernel takes float32 or bfloat16 pools
     (q of the same type), int64 tables and positions (no conversion),
     16-byte aligned pools (it reads them in 16-byte vectors), hd a
-    multiple of 32 up to 256, a page size that is a power of two up to 32
-    (one instantiation each), and a page of one kv head of at most
-    PAGED_PAGE_BYTES (what its threads hold in flight)."""
+    multiple of 8 up to PAGED_MAX_HD, and any page size."""
     B, Sq, H, hd = q.shape
     pos = torch.as_tensor(pos, device=q.device).expand(B)
     if not _on_cuda(q, k_pool, v_pool, page_table, pos):
@@ -245,22 +242,15 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged_attention: pool dtype {dtype}, the kernel "
                         "takes float32 or bfloat16")
-    if H % Hkv or hd % 32 or hd > 256:
+    if H % Hkv or hd % 8 or not 0 < hd <= PAGED_MAX_HD:
         raise ValueError(f"paged_attention: H={H}, Hkv={Hkv}, hd={hd}; the "
-                         "kernel needs H % Hkv == 0 and hd % 32 == 0, "
-                         "hd <= 256")
+                         "kernel needs H % Hkv == 0 and hd a multiple of 8 "
+                         f"up to {PAGED_MAX_HD}")
     q = _arg(q, dtype, (B, Sq, H, hd), "q")
     k_pool = _arg(k_pool, dtype, (P, ps, Hkv, hd), "k_pool")
     v_pool = _arg(v_pool, dtype, (P, ps, Hkv, hd), "v_pool")
     page_table = _arg(page_table, torch.int64, (B, max_pages), "page_table")
     pos = _arg(pos, torch.int64, (B,), "pos")
-    if ps not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"paged_attention: page_size {ps}; the kernel "
-                         "takes a power of two up to 32")
-    if ps * hd * k_pool.element_size() > PAGED_PAGE_BYTES:
-        raise ValueError(f"paged_attention: page_size {ps} x hd {hd} of "
-                         f"{dtype} exceeds the kernel's {PAGED_PAGE_BYTES}"
-                         "-byte page")
     if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
         raise ValueError("paged_attention: the kernel reads the pools in "
                          "16-byte vectors; they must be 16-byte aligned")

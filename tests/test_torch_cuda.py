@@ -109,19 +109,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.gumbel_argmax(probs, seeds.cpu())
     with pytest.raises(TypeError):
         ops.tournament_keyed(probs, seeds.int(), seeds, stream=1, m=2)
-    # paged attention: a page size that is no power of two, a page past
-    # the threads' 16 KB in flight, a pool off the 16-byte grid
+    # paged attention: a pool off the 16-byte grid, a head size past 256
+    # and one that is no multiple of 8 (any page size is taken)
     q = torch.zeros((1, 1, 2, 128), device=cuda)
     table = torch.ones((1, 1), dtype=torch.int64, device=cuda)
     pos = torch.ones(1, dtype=torch.int64, device=cuda)
-    for ps in (12, 64):
-        pool = torch.zeros((2, ps, 2, 128), device=cuda)
-        with pytest.raises(ValueError):
-            ops.paged_attention(q, pool, pool, table, pos)
     odd = torch.zeros(2 * 16 * 2 * 128 + 1, device=cuda)[1:].view(
         2, 16, 2, 128)
     with pytest.raises(ValueError):
         ops.paged_attention(q, odd, odd, table, pos)
+    for hd in (260, 100):
+        pool = torch.zeros((2, 16, 2, hd), device=cuda)
+        with pytest.raises(ValueError):
+            ops.paged_attention(torch.zeros((1, 1, 2, hd), device=cuda),
+                                pool, pool, table, pos)
 
 
 @pytest.mark.gpu
@@ -168,15 +169,25 @@ def _paged_inputs(B, Sq, H, Hkv, hd, ps, max_pages, pos, dtype, dev, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,H,Hkv,hd,pos", [
-    (4, 5, 4, 2, 64, [17, 40, 3, 0]),          # the TINY pair's GQA
-    (3, 5, 32, 32, 128, [100, 977, 0]),        # target verify
-    (2, 32, 12, 12, 64, [1, 0])])              # a prefill chunk
+@pytest.mark.parametrize("B,Sq,H,Hkv,hd,ps,max_pages,pos", [
+    (4, 5, 4, 2, 64, 16, 64, [17, 40, 3, 0]),      # the TINY pair's GQA
+    (3, 5, 32, 32, 128, 16, 64, [100, 977, 0]),    # target verify
+    (2, 32, 12, 12, 64, 16, 64, [1, 0]),           # a prefill chunk
+    (3, 5, 4, 2, 64, 1, 256, [100, 7, 0]),         # one position a page
+    (3, 5, 64, 8, 112, 12, 90, [500, 977, 0]),     # kimi-like GQA, hd 112
+    (3, 5, 16, 16, 256, 48, 22, [300, 1000, 0]),   # gemma-like, hd 256
+    (2, 5, 8, 8, 192, 64, 16, [900, 0]),           # hd 192, page 64
+    (2, 1, 8, 8, 128, 16, 260, [4096, 0]),         # a 4096-position row
+    (2, 1, 4, 4, 64, 16, 600, [9000, 0])])         # past 32 staged chunks
 def test_paged_attention_matches_plain_version(cuda, dtype, B, Sq, H, Hkv,
-                                               hd, pos):
+                                               hd, ps, max_pages, pos):
+    """Every case's last row is a FREE slot; the 4096-position row passes
+    the kernel's kept scores (1024 positions), so pass two recomputes
+    its later scores; the 9000-position row also passes its staged pages
+    (8192 positions), so later copies read the table themselves."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = _paged_inputs(B, Sq, H, Hkv, hd, 16, 64, pos, dtype, cuda,
-                         seed=Sq * H)
+    args = _paged_inputs(B, Sq, H, Hkv, hd, ps, max_pages, pos, dtype, cuda,
+                         seed=Sq * H + ps)
     ops.reset_launches()
     out = ops.paged_attention(*args)
     torch.cuda.synchronize()
@@ -198,6 +209,70 @@ def test_paged_attention_matches_plain_version(cuda, dtype, B, Sq, H, Hkv,
     p[0] = 0
     args = (q, k, v, table, p)
     close(ops.paged_attention(*args), ref.paged_attention_ref(*args), args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,H,Hkv,hd", [(5, 32, 32, 128), (1, 12, 12, 64),
+                                         (5, 64, 8, 112)])
+def test_paged_attention_row_alone_equals_batched(cuda, dtype, Sq, H, Hkv,
+                                                  hd):
+    """A slot's output does not depend on the batch around it: its rows
+    alone (B=1) equal the same rows inside a batch of 8, bit for bit."""
+    args = _paged_inputs(8, Sq, H, Hkv, hd, 16, 80,
+                         [1000, 17, 500, 3, 1200, 64, 900, 0], dtype, cuda,
+                         seed=hd)
+    batched = ops.paged_attention(*args)
+    q, k, v, table, pos = args
+    for b in (0, 3, 7):
+        alone = ops.paged_attention(q[b:b + 1], k, v, table[b:b + 1],
+                                    pos[b:b + 1])
+        assert torch.equal(alone[0], batched[b]), b
+
+
+def _tournament_inputs(B, V, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    probs = torch.softmax(torch.randn((B, V), generator=g, device=dev) * 3,
+                          -1)
+    keys = torch.randint(0, 2**32, (B,), generator=g, device=dev)
+    ctx = torch.randint(0, 2**32, (B,), generator=g, device=dev)
+    return probs, keys, ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [96, 32000, 256128])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_tournament_keyed_matches_plain_version(cuda, B, V):
+    """The cluster tournament against its plain version: the distribution
+    within rtol=1e-4, atol=1e-7, the argmax equal outside margin rows;
+    fewer rounds or another context is far outside that tolerance."""
+    probs, keys, ctx = _tournament_inputs(B, V, cuda, seed=B * V)
+    ops.reset_launches()
+    dk, ak = ops.tournament_keyed(probs, keys, ctx, stream=0xD0, m=30)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tournament_keyed"] == 1
+    dr, ar = ref.tournament_keyed_ref(probs, keys, ctx, stream=0xD0, m=30)
+    torch.testing.assert_close(dk, dr, rtol=1e-4, atol=1e-7)
+    assert bool(((ak == ar) | (ref.margin(dr) < MARGIN)).all())
+    for bad in (ref.tournament_keyed_ref(probs, keys, ctx, stream=0xD0,
+                                         m=29)[0],
+                ref.tournament_keyed_ref(probs, keys, ctx ^ 1,
+                                         stream=0xD0, m=30)[0]):
+        assert V < 4096 or not torch.allclose(dk, bad, rtol=1e-4,
+                                              atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [96, 32000, 256128])
+def test_tournament_keyed_row_alone_equals_batched(cuda, V):
+    """A row's rounds do not depend on B: alone equals in a batch of 8,
+    distribution and argmax bit for bit."""
+    probs, keys, ctx = _tournament_inputs(8, V, cuda, seed=V + 1)
+    db, ab = ops.tournament_keyed(probs, keys, ctx, stream=0xD0, m=30)
+    for b in (0, 5):
+        da, aa = ops.tournament_keyed(probs[b:b + 1], keys[b:b + 1],
+                                      ctx[b:b + 1], stream=0xD0, m=30)
+        assert torch.equal(da[0], db[b]) and int(aa[0]) == int(ab[b]), b
 
 
 def _recurrent_inputs(kernel, shape, dtype, dev, seed):
@@ -240,7 +315,9 @@ RECURRENT = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel,shape", [
     ("wkv_step", (3, 5, 64)), ("wkv_step", (2, 3, 32)),
+    ("wkv_step", (2, 3, 128)), ("wkv_step", (3, 2, 16)),
     ("wkv", (2, 37, 3, 64)), ("wkv", (1, 5, 2, 32)),
+    ("wkv", (1, 37, 2, 128)), ("wkv", (2, 9, 3, 16)),
     ("ssd_step", (3, 5, 64, 64)), ("ssd_step", (2, 3, 16, 8)),
     ("ssd", (2, 37, 3, 64, 64)), ("ssd", (1, 16, 2, 16, 8)),
     ("ssd", (1, 5, 2, 32, 16))])

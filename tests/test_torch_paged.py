@@ -3,9 +3,10 @@
 - ``kernels.ref.paged_attention_ref`` (the plain version of the paged
   kernel, and what a CPU tensor takes through ``ops.paged_attention``)
   against ``repro.kernels.ref.paged_attention_ref`` (the reference's CPU
-  serving path): GQA, Sq in {1, 4}, scalar and per-row pos, null tails
-  and extra garbage pages, within 1e-6 in fp32 (the two frameworks sum
-  the softmax and the value product in other orders).
+  serving path): GQA, Sq in {1, 4}, scalar and per-row pos, page sizes 1,
+  8 and 12, hd 16 and 112, null tails and extra garbage pages, within
+  1e-6 · hd / 16 in fp32 (the two frameworks sum the q·k dots, the softmax
+  and the value product in other orders; a dot's rounding grows with hd).
 - The same inputs against the reference's Pallas program
   (``paged_attention_kernel(..., interpret=True)``) within 1e-5: the
   Pallas body contracts q·k and p·v with its own dot order, and the
@@ -76,14 +77,24 @@ def _ref(q, k, v, table, pos):
             jnp.asarray(table, jnp.int32), jnp.asarray(pos, jnp.int32))
 
 
+@pytest.mark.parametrize("hd", [16, 112])
+@pytest.mark.parametrize("page_size", [1, 8, 12])
 @pytest.mark.parametrize("Sq", [1, 4])
 @pytest.mark.parametrize("pos_kind", ["scalar", "per-row"])
-def test_paged_attention_ref_matches_reference(Sq, pos_kind):
-    q, k, v, table = _paged(np.random.default_rng(Sq), Sq=Sq)
+def test_paged_attention_ref_matches_reference(Sq, pos_kind, page_size, hd):
+    """At every page size and head size the card's kernel takes (any page
+    size, hd a multiple of 8), over an extent of about 32 positions."""
+    max_pages = -(-32 // page_size)
+    q, k, v, table = _paged(np.random.default_rng(Sq), Sq=Sq, hd=hd,
+                            page_size=page_size, max_pages=max_pages,
+                            n_pages=3 * max_pages + 2)
     pos = _pos(pos_kind)
     want = np.asarray(JR.paged_attention_ref(*_ref(q, k, v, table, pos)))
     got = TR.paged_attention_ref(*_port(q, k, v, table, pos))
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    # 1e-6 at hd 16; the float32 rounding bound of a q·k dot (γ_hd) grows
+    # linearly with hd, so a wider head gets hd / 16 times that
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * hd / 16)
     # a CPU tensor takes the plain version through the wrapper, uncounted
     ops.reset_launches()
     assert torch.equal(ops.paged_attention(*_port(q, k, v, table, pos)), got)
@@ -91,7 +102,9 @@ def test_paged_attention_ref_matches_reference(Sq, pos_kind):
         *_port(q, k, v, table, pos)), got)
     assert ops.LAUNCHES["paged_attention"] == 0
     # extra garbage pages past every row's limit change nothing
-    wide = np.concatenate([table, np.array([[13], [14], [15]])], axis=1)
+    spare = table.size + 1            # pages no row's table holds
+    wide = np.concatenate([table, np.array([[spare], [spare - 1], [0]])],
+                          axis=1)
     assert torch.equal(TR.paged_attention_ref(*_port(q, k, v, wide, pos)),
                        got)
 
