@@ -14,7 +14,9 @@ Phases, each fatal on failure, in this order:
      the Monte-Carlo shape (16384, 32000) and a Fig. 1 chunk (20000, 10),
      whose tolerance must also see two emulated faults (m − 1 rounds, a
      wrong seed row); the unkeyed verify at (4, 4, 32000) and (8, 4,
-     4096); times of kernel, plain version and bound;
+     4096); the tournament tail at the serving step's shape (B=8, every
+     row live, no slot seen), each row alone equal to it in the batch;
+     times of kernel, plain version and bound;
   2b. the paged-attention kernel against its plain version at the
      target-verify, prefill-chunk, draft and TINY GQA shapes, a kimi-like
      GQA verify (hd 112, page size 12), a gemma-like one (hd 256) and a
@@ -25,7 +27,9 @@ Phases, each fatal on failure, in this order:
      bound and an SDPA yardstick;
   2c. the four recurrent kernels (wkv, wkv_step, ssd, ssd_step) against
      their plain versions at the rwkv6-3b and zamba2-1.2b serving shapes
-     and the WKV kernels at head size 128,
+     and the WKV kernels at head size 128, and the ssd_step kernel's
+     per-timestep scan (one launch a call) over zamba2-1.2b prompts of
+     16, 64 and 128 tokens,
      bf16 and fp32 inputs, every output (y and the state) within its
      rounding bound, which must also see three emulated faults; times of
      kernel, plain version and bound;
@@ -178,9 +182,10 @@ def bound_ms(nbytes: float, nops: float):
 # ---------------------------------------------------------------------------
 
 
-def verify_inputs(B, K, V, seed):
+def verify_inputs(B, K, V, seed, serving=False):
     """p, q with some agreement (so acceptance varies), drafts from q,
-    mixed keys, seen and live rows."""
+    mixed keys, seen and live rows; with ``serving`` every row live and no
+    slot seen (the serving step's slots, each drawing a fresh token)."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(seed)
     dev = DEV
@@ -197,14 +202,46 @@ def verify_inputs(B, K, V, seed):
     seen[1] = True                  # row 1: the plain stream everywhere
     live = torch.ones(B, dtype=torch.bool, device=dev)
     live[2] = False
+    if serving:
+        seen[:] = False
+        live[:] = True
     return p, q, toks, u, keys, ctx, seen, live
 
 
-def check_spec_verify(V, tail, name, streams, record):
+def tail_cases():
+    """(name, B, V, tail, serving) of phase 2's fused-tail checks: the race,
+    the tournament and the degenerate tail at B=4 and both vocabularies
+    (mixed seen / live rows), and the tournament at the serving shape."""
+    from repro_torch.core.watermark.base import FusedTail
+    cases = []
+    for V in (32000, 256128):
+        cases.append((f"spec_verify_wm race V={V}", 4, V, None, False))
+        for degen in (False, True):
+            cases.append((
+                f"spec_verify_wm_tournament{' degen' if degen else ''} V={V}",
+                4, V, FusedTail(kind="tournament", m=30, stat_dim=30,
+                                degenerate=degen), False))
+    B, V = TAIL_SERVING_SHAPE
+    cases.append((f"spec_verify_wm_tournament serving B={B} V={V}", B, V,
+                  FusedTail(kind="tournament", m=30, stat_dim=30), True))
+    return cases
+
+
+def tail_inputs(B, V, tail, serving):
+    """A fused-tail case's inputs (K=4), the same in every checkout."""
+    return verify_inputs(B, 4, V, seed=V + (tail.m if tail else 0) + B - 4,
+                         serving=serving)
+
+
+def check_spec_verify(name, B, V, tail, serving, streams, record):
+    """ops.spec_verify_wm against its plain version: n_acc and the prefix
+    bitwise, the token outside margin rows (counted), its U or g-bits
+    bitwise; at ``serving`` also every row alone equal to the same row in
+    the batch, bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
-    B, K = 4, 4
-    args = verify_inputs(B, K, V, seed=V + (tail.m if tail else 0))
+    K = 4
+    args = tail_inputs(B, V, tail, serving)
     p, q, toks, u, keys, ctx, seen, live = args
     kn = ops.spec_verify_wm(*args, streams=streams, tail=tail)
     torch.cuda.synchronize()
@@ -244,7 +281,14 @@ def check_spec_verify(V, tail, name, streams, record):
         err = 0.0
     check(bool((tok_k[~live] == 0).all() and (n_acc_k[~live] == 0).all()),
           f"{name}: dead rows not zero")
+    if serving:
+        for b in range(B):
+            alone = ops.spec_verify_wm(*(x[b:b + 1] for x in args),
+                                       streams=streams, tail=tail)
+            check(all(torch.equal(x[0], y[b]) for x, y in zip(alone, kn)),
+                  f"{name}: row {b} alone differs from the batch")
     times = timings(
+        "spec_verify_wm_tournament_kernel" if kind == "tournament" else
         "spec_verify_wm_kernel",
         lambda: ops.spec_verify_wm(*args, streams=streams, tail=tail),
         lambda: ref.spec_verify_wm_ref(*args, streams=streams, kind=kind,
@@ -380,6 +424,9 @@ TOURNAMENT_SHAPES = ((4, 32000), (8, 4096), (16384, 32000), (20000, 10))
 GUMBEL_ARGMAX_SHAPES = ((4, 32000), (4, 256128), (16384, 32000),
                         (20000, 10))
 SPEC_VERIFY_SHAPES = ((4, 4, 32000), (8, 4, 4096))
+# the fused tail's tournament at the dense-draft serving step: 8 slots,
+# every one live and drawing a fresh token (K=4, m=30)
+TAIL_SERVING_SHAPE = (8, 32000)
 
 
 def tol_ratio(got, want, rtol=DIST_RTOL, atol=DIST_ATOL) -> float:
@@ -464,7 +511,6 @@ def check_spec_verify_unkeyed(B, K, V, record):
 
 
 def phase_kernels():
-    from repro_torch.core.watermark.base import FusedTail
     from repro_torch.kernels import ops
     record = []
     for B, V in TOURNAMENT_SHAPES:
@@ -475,15 +521,8 @@ def phase_kernels():
         check_gumbel_argmax(B, V, record)
     for B, V in TOURNAMENT_KEYED_SHAPES:
         check_tournament(B, V, record)
-    for V in (32000, 256128):
-        check_spec_verify(V, None, f"spec_verify_wm race V={V}",
-                          ops.DEFAULT_STREAMS, record)
-        for degen in (False, True):
-            tail = FusedTail(kind="tournament", m=30, stat_dim=30,
-                             degenerate=degen)
-            check_spec_verify(
-                V, tail, f"spec_verify_wm_tournament{' degen' if degen else ''}"
-                f" V={V}", ops.DEFAULT_STREAMS, record)
+    for case in tail_cases():
+        check_spec_verify(*case, ops.DEFAULT_STREAMS, record)
     for r in record:
         print("kernel-check " + json.dumps(r))
     return record
@@ -907,8 +946,15 @@ REC_CASES = [
     ("ssd batch", "ssd", dict(B=4, S=200, H=64, hd=64, N=64)),
     ("wkv_step hd128", "wkv_step", dict(B=8, H=20, hd=128)),
     ("wkv hd128", "wkv", dict(B=1, S=64, H=20, hd=128)),
+    ("ssd_scan prompt 16", "ssd_scan", dict(B=1, S=16, H=64, hd=64, N=64)),
+    ("ssd_scan prompt 64", "ssd_scan", dict(B=1, S=64, H=64, hd=64, N=64)),
+    ("ssd_scan prompt 128", "ssd_scan",
+     dict(B=1, S=128, H=64, hd=64, N=64)),
 ]
 REC_CHUNK = 128
+# the launch count and the device kernel of each case's wrapper: the
+# per-timestep scan runs the step kernel, once a call
+REC_KERNEL = {"ssd_scan": "ssd_step"}
 FAULT_FACTOR = 10     # a fault must move an output this many tolerances
 
 
@@ -937,7 +983,7 @@ def rec_inputs(kernel, shape, dtype, seed):
         return tuple(x.to(DEV, dtype) for x in (r, k, v)) + (
             w.to(DEV), u.to(DEV, dtype), s0.to(DEV))
     H, hd, N = shape["H"], shape["hd"], shape["N"]
-    lead = (B, shape["S"]) if kernel == "ssd" else (B,)
+    lead = (B, shape["S"]) if "S" in shape else (B,)
     la = -F.softplus(n(*lead, H))
     dtx = F.softplus(n(*lead, H, 1)) * n(*lead, H, hd)
     Bf, Cf = n(*lead, N), n(*lead, N)
@@ -957,6 +1003,9 @@ def rec_functions(kernel):
         return ops.wkv, ref.wkv_ref, ref.wkv_tol
     if kernel == "ssd_step":
         return ops.ssd_step, ref.ssd_step_ref, ref.ssd_tol
+    if kernel == "ssd_scan":
+        return (ops.ssd_scan, ref.ssd_ref,
+                functools.partial(ref.ssd_tol, chunk=0))
     return (functools.partial(ops.ssd, chunk=REC_CHUNK),
             functools.partial(ref.ssd_chunked_ref, chunk=REC_CHUNK),
             functools.partial(ref.ssd_tol, chunk=REC_CHUNK))
@@ -980,7 +1029,7 @@ def rec_faults(kernel, args):
                 "decay_late": (r, k, v, late, u, s0),
                 "head_stride": (r, torch.roll(k, 1, dims=-2), v, w, u, s0)}
     la, dtx, Bf, Cf, h0 = args
-    if kernel == "ssd":
+    if la.dim() == 3:
         late = torch.cat([torch.zeros_like(la[:, :1]), la[:, :-1]], 1)
     else:
         late = torch.zeros_like(la)
@@ -1011,8 +1060,9 @@ def rec_bound(kernel, shape, el):
 
 
 def phase_recurrent_kernels():
-    """wkv_step, wkv, ssd_step and ssd against their plain versions at the
-    serving shapes of rwkv6-3b and zamba2-1.2b, with float32 and bfloat16
+    """wkv_step, wkv, ssd_step (the decode step and the per-timestep scan,
+    one launch a call) and ssd against their plain versions at the serving
+    shapes of rwkv6-3b and zamba2-1.2b, with float32 and bfloat16
     inputs.  Every output (y and the state) must lie within its tolerance
     (ref.wkv_tol / ref.ssd_tol: twice γ_D times the output's envelope, the
     plain version run on absolute values), and each of three emulated
@@ -1027,11 +1077,13 @@ def phase_recurrent_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{name} {str(dtype)[6:]}"
             args = rec_inputs(kernel, shape, dtype, seed=len(record) + 1)
+            launched = REC_KERNEL.get(kernel, kernel)
             ops.reset_launches()
             got = fn(*args)
             torch.cuda.synchronize()
-            check(ops.LAUNCHES[kernel] == 1,
-                  f"{tag}: {ops.LAUNCHES[kernel]} launches, not 1")
+            check(ops.LAUNCHES[launched] == 1 and sum(ops.LAUNCHES.values())
+                  == 1, f"{tag}: launches {ops.LAUNCHES}, not one "
+                  f"{launched}")
             want = plain(*args)
             tols = tolf(*args)
             ratio, errs = 0.0, []
@@ -1054,11 +1106,12 @@ def phase_recurrent_kernels():
             torch.cuda.synchronize()
             check(min(faults.values()) > FAULT_FACTOR,
                   f"{tag}: the tolerance misses a fault: {faults}")
-            times = timings(f"{kernel}_kernel", lambda: fn(*args),
+            times = timings(f"{launched}_kernel", lambda: fn(*args),
                             lambda: plain(*args))
             bnd, by = rec_bound(kernel, shape,
                                 torch.finfo(dtype).bits // 8)
-            record.append(dict(case=tag, max_abs_err=err, err_over_tol=ratio,
+            record.append(dict(case=tag, kernel=launched, max_abs_err=err,
+                               err_over_tol=ratio,
                                y_err=errs[0], state_err=errs[1],
                                tol_median=float(tols[0].median()), **faults,
                                **times, library_ms=None, bound_ms=bnd,
@@ -1331,6 +1384,16 @@ def run_counted(fn):
     return out, time.perf_counter() - t, dict(ops.LAUNCHES)
 
 
+def print_ssd_launches(by_path):
+    """One line per Zamba2 path: its ssd_step launches (decode steps and,
+    one a call, per-timestep scans of prompts up to the chunk) and its
+    chunked ssd launches."""
+    for path, c in by_path.items():
+        if "zamba2" in path:
+            print(f"{path}: ssd_step launches {c['ssd_step']}, "
+                  f"ssd launches {c['ssd']}")
+
+
 def phase_recurrent(target):
     """LLAMA_7B with the rwkv6-3b and the zamba2-1.2b drafts in bf16 (random
     weights from seed 2): generate (B=4, prompt 200, 48 tokens; gumbel and
@@ -1440,6 +1503,7 @@ def phase_recurrent(target):
         print(f"{path}: " + json.dumps(results[path]))
         del draft
         torch.cuda.empty_cache()
+    print_ssd_launches(by_path)
     need = {"generate rwkv6 gumbel": ("wkv", "wkv_step"),
             "serve_requests rwkv6 paged": ("wkv", "wkv_step"),
             "generate zamba2 gumbel": ("ssd", "ssd_step"),
@@ -1528,6 +1592,7 @@ def phase_tiny_recurrent():
             margin_rows += compare_requests(b.as_generation_result(), solo,
                                             gpu, scfg, p, tag + " vs solo")
             n_rows += 2
+    print_ssd_launches(counts)
     for path, kernels in (("tiny generate rwkv6 gumbel", ("wkv", "wkv_step")),
                           ("tiny generate zamba2 gumbel", ("ssd", "ssd_step")),
                           ("tiny serve_requests rwkv6", ("wkv", "wkv_step")),
@@ -2131,7 +2196,8 @@ def main() -> int:
     for name, source, replaces, case in KERNELS:
         r = by_case[case]
         prefix = case.split()[0]
-        cases = [x for x in record if x["case"].split()[0] == prefix]
+        cases = [x for x in record
+                 if x.get("kernel", x["case"].split()[0]) == prefix]
         by_path = {path: c[name] for path, c in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

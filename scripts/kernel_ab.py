@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the paged-attention and keyed-tournament kernels of two checkouts
-on one CUDA card.
+"""Time the paged-attention, keyed-tournament, fused-tail tournament and
+SSD step / scan kernels of two checkouts on one CUDA card.
 
     python3 scripts/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT
 
@@ -11,9 +11,17 @@ kernels built from that checkout's sources: the checkout's own
 tournament shapes that the checkout's own checks did not time, the
 checkout's kernel on NEW's inputs (the same seeds, so every case sees the
 same tensors in both checkouts; "refused" where the checkout's wrapper
-raises on them).  Prints one JSON line per run, then one line per case:
-the kernel's ms in the four runs.  Compare the two versions only within
-one such call: the card's clocks and the host differ between calls.
+raises on them).  Then, on NEW's inputs through each checkout's wrappers:
+the fused tail at NEW's phase 2 cases (``tail_cases``: the race and the
+tournament, degenerate or not, at B=4 and V=32000 and 256128, and the
+tournament's B=8 serving case), the median of its launches; and NEW's
+phase 2c SSD cases, the decode step
+(``ssd_step``, the median of its launches) and the per-timestep scan
+(``ssd_scan``: the device time of every kernel of one call, however many
+launches it makes, and, as "... wall", the median wall time of one call,
+host work included).  Prints one JSON line per run, then one line per
+case: its ms in the four runs.  Compare the two versions only within one
+such call: the card's clocks and the host differ between calls.
 """
 from __future__ import annotations
 
@@ -73,6 +81,45 @@ for B, V in new.TOURNAMENT_KEYED_SHAPES:
     ms[case] = chip_smoke.device_ms(
         lambda: ops.tournament_keyed(probs, keys, ctx, stream=0xD0, m=30),
         kernel="tournament_keyed_kernel")
+
+def per_call_ms(fn, reps=10):
+    # the device time of every kernel that one call of fn launches
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / reps / 1e3
+
+
+for name, B, V, tail, serving in new.tail_cases():
+    args = new.tail_inputs(B, V, tail, serving)
+    if " B=" not in name:
+        name = name.replace(f" V={V}", f" B={B} V={V}")
+    ms[name] = chip_smoke.device_ms(
+        lambda: ops.spec_verify_wm(*args, tail=tail),
+        kernel="spec_verify_wm")
+for i, (name, kernel, shape) in enumerate(new.REC_CASES):
+    if kernel not in ("ssd_step", "ssd_scan"):
+        continue
+    for dtype in (torch.bfloat16, torch.float32):
+        case = f"{name} {str(dtype)[6:]}"
+        args = new.rec_inputs(kernel, shape, dtype, seed=i + 1)
+        fn = getattr(ops, kernel)
+        try:
+            fn(*args)
+        except ValueError:
+            ms[case] = "refused"
+            continue
+        if kernel == "ssd_step":
+            ms[case] = chip_smoke.device_ms(lambda: fn(*args),
+                                            kernel="ssd_step_kernel")
+        else:
+            ms[case] = per_call_ms(lambda: fn(*args))
+            ms[case + " wall"] = chip_smoke.call_ms(lambda: fn(*args))
 print("AB " + json.dumps({"checkout": root, "ms": ms, "plain_ms": plain,
                           "library_ms": library}))
 """

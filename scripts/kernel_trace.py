@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where a block's time goes in the paged-attention and keyed-tournament
-kernels, on one CUDA card.
+"""Where a block's time goes in the paged-attention, keyed-tournament,
+fused-tail tournament and SSD step kernels, on one CUDA card.
 
     python3 scripts/kernel_trace.py
 
-Builds a traced copy of ``csrc/paged_attention.cu`` and of
-``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``) into
+Builds a traced copy of ``csrc/paged_attention.cu``, of
+``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``), of
+``csrc/spec_verify_wm.cu`` and of ``csrc/ssd_step.cu`` into
 ``build/kernel_trace/``: thread 0 of every block writes ``%globaltimer``
-at the marks below.  Runs each at ``chip_smoke.PAGED_CASES`` (bf16) and
-``chip_smoke.TOURNAMENT_KEYED_SHAPES`` and prints one JSON line per case:
+at the marks below.  Runs them at ``chip_smoke.PAGED_CASES`` (bf16),
+``chip_smoke.TOURNAMENT_KEYED_SHAPES``, the tail's tournament at the
+serving step's inputs (every row live, no slot seen) at those shapes, and
+``chip_smoke.REC_CASES``' SSD step and scan cases (float32), and prints
+one JSON line per case:
 the span of the launch, the median life of a block, the quartiles of the
 blocks' start times (how many waves), and the median time between
 consecutive marks.  The traced copies only add the marks (one global
@@ -79,6 +83,26 @@ TOURNAMENT_MARKS = [
 ]
 TOURNAMENT_PHASES = ["mbarrier set-up, cluster barrier",
                      "round 0's bits, then the m rounds"]
+TAIL_MARKS = [
+    (0, "  const int b = blockIdx.x / C, V = a.V, tid = threadIdx.x;\n"),
+    (1, "  ct_slice(V, C, rank, lo, hi);\n"),
+    (2, "    row[w - lo] = row[w - lo] / z;\n"),
+    (3, "    cluster_tournament(row, lo, hi, V, a.m, t.wm_s, sh);\n"),
+    (4, "      tok = cluster_race(row, lo, hi, dw_s, sh);\n    }\n  }\n"),
+]
+TAIL_PHASES = ["accept test, seeds",
+               "r over the slice, its sum over the cluster, normalise",
+               "the m rounds", "the draw (race at member 0)"]
+SSD_MARKS = [
+    (0, "  const size_t bR = (size_t)b * HD;\n"),
+    (1, "  for (int t = 0; t < SSD_STAGES - 1; ++t) issue(t);\n"),
+    (2, '  asm volatile("cp.async.wait_group 0;\\n" ::: "memory");\n'),
+    (3, "          if (col[k][v]) dst[v] = st[r][k][v];\n      }\n    }\n"
+        "  }\n"),
+]
+SSD_PHASES = ["state loads and the ring's first steps issued",
+              "the S steps (the first waits for the loads)",
+              "the state written"]
 
 
 def instrument(text: str, marks) -> str:
@@ -94,31 +118,38 @@ def instrument(text: str, marks) -> str:
     return text
 
 
-def build_traced(name: str, source: Path, marks, header=None) -> ctypes.CDLL:
+def build_traced(name: str, source: Path, marks, header=None,
+                 decl_after="namespace cg = cooperative_groups;\n"
+                 ) -> ctypes.CDLL:
+    """Compile a copy of ``source`` (or of its ``header``) with the marks
+    into its own directory, the trace buffer declared after ``decl_after``
+    (or after the header's prf.cuh include)."""
     from repro_torch.kernels import build
-    OUT.mkdir(parents=True, exist_ok=True)
+    out = OUT / name
+    out.mkdir(parents=True, exist_ok=True)
     text = source.read_text()
     if header is None:
-        text = text.replace("namespace cg = cooperative_groups;\n",
-                            "namespace cg = cooperative_groups;\n"
-                            + TRACE_DECL, 1)
+        if decl_after not in text:
+            raise SystemExit(f"kernel_trace: {decl_after!r} not in {source}")
+        text = text.replace(decl_after, decl_after + TRACE_DECL, 1)
         text = instrument(text, marks)
     else:
         hdr = (CSRC / header).read_text()
         hdr = hdr.replace("#include \"prf.cuh\"\n",
                           "#include \"prf.cuh\"\n" + TRACE_DECL, 1)
-        (OUT / header).write_text(instrument(hdr, marks))
-    cu = OUT / f"{name}.cu"
+        (out / header).write_text(instrument(hdr, marks))
+    cu = out / f"{name}.cu"
     cu.write_text(text)
-    so = OUT / f"lib{name}.so"
+    so = out / f"lib{name}.so"
     res = subprocess.run(
-        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(OUT), "-I", str(CSRC),
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(out), "-I", str(CSRC),
          "-shared", "-o", str(so), str(cu)], capture_output=True, text=True)
     if res.returncode:
         raise SystemExit(f"kernel_trace: nvcc failed on {name}:\n"
                          f"{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn in ("paged_attention_launch", "tournament_keyed_launch"):
+    for fn in ("paged_attention_launch", "tournament_keyed_launch",
+               "spec_verify_wm_launch", "ssd_step_launch"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = build.SIGNATURES[fn]
     return lib
@@ -186,7 +217,61 @@ def main() -> int:
                              "differs")
         print(json.dumps(dict(kernel="tournament_keyed", case=f"B={B} V={V}",
                               **report(tk, 8 * B, TOURNAMENT_PHASES))))
+    trace_tail(cs, ops)
+    trace_ssd(cs, ops)
     return 0
+
+
+def trace_tail(cs, ops):
+    """The fused tail's tournament at the serving step's inputs."""
+    import torch
+    from repro_torch.core.watermark.base import FusedTail
+    sv = build_traced("spec_verify_wm_traced", CSRC / "spec_verify_wm.cu",
+                      TAIL_MARKS, decl_after='#include "cluster_tournament.cuh"\n')
+    tail = FusedTail(kind="tournament", m=30, stat_dim=30)
+    for B, V in cs.TOURNAMENT_KEYED_SHAPES:
+        args = cs.tail_inputs(B, V, tail, serving=True)
+        want = ops.spec_verify_wm(*args, tail=tail)
+        got = [torch.empty_like(w) for w in want]
+        p, q, toks, u, keys, ctx, seen, live = args
+        rc = sv.spec_verify_wm_launch(
+            *(ops._ptr(x) for x in (p, q, toks, u, keys, ctx, seen, live)),
+            ops._ptr(None), *(ops._ptr(x) for x in got), B, 4, V, 30, 1, 0,
+            30, *ops.DEFAULT_STREAMS, ops._stream(p))
+        torch.cuda.synchronize()
+        if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"kernel_trace: traced tail B={B} V={V} "
+                             "differs")
+        print(json.dumps(dict(kernel="spec_verify_wm_tournament",
+                              case=f"B={B} V={V}",
+                              **report(sv, 8 * B, TAIL_PHASES))))
+
+
+def trace_ssd(cs, ops):
+    """The SSD step kernel at phase 2c's decode step and scans (float32)."""
+    import torch
+    sk = build_traced("ssd_step_traced", CSRC / "ssd_step.cu", SSD_MARKS,
+                      decl_after='#include "recurrent.cuh"\n')
+    for i, (name, kernel, shape) in enumerate(cs.REC_CASES):
+        if kernel not in ("ssd_step", "ssd_scan"):
+            continue
+        args = cs.rec_inputs(kernel, shape, torch.float32, seed=i + 1)
+        want = getattr(ops, kernel)(*args)
+        got = [torch.empty_like(w) for w in want]
+        la, dtx, Bf, Cf, h0 = args
+        B, H, hd, N = h0.shape
+        S = shape.get("S", 1)
+        rc = sk.ssd_step_launch(
+            *(ops._ptr(x) for x in (la, dtx, Bf, Cf, h0, *got)), B, S, H,
+            hd, N, 0, ops._stream(la))
+        torch.cuda.synchronize()
+        if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"kernel_trace: traced {name} differs")
+        tpr = min(32, 1 << max(0, (-(-N // 4) - 1).bit_length()))
+        rows = 2 * 128 // tpr
+        rep = report(sk, -(-H * hd // rows) * B, SSD_PHASES)
+        rep["us_per_step"] = rep["phases_us"][SSD_PHASES[1]] / S
+        print(json.dumps(dict(kernel="ssd_step", case=name, S=S, **rep)))
 
 
 if __name__ == "__main__":

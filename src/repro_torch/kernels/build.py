@@ -35,7 +35,7 @@ SIGNATURES = {
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
     "wkv_step_launch": [_P] * 8 + [_I] * 4 + [_P],
     "wkv_launch": [_P] * 8 + [_I] * 5 + [_P],
-    "ssd_step_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "ssd_step_launch": [_P] * 7 + [_I] * 6 + [_P],
     "ssd_launch": [_P] * 7 + [_I] * 7 + [_P],
     "ssd_smem_bytes": [_I] * 3,
 }

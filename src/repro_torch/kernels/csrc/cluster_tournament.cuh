@@ -24,8 +24,10 @@
 // sums depend only on V, C and blockDim.x, never on the number of rows or
 // the SM count.
 //
-// Used by tournament_keyed.cu; spec_verify_wm.cu's tournament branch and
-// tournament.cu still run block_tournament (prf.cuh), one block per row.
+// Used by tournament_keyed.cu and by spec_verify_wm.cu's tournament
+// branch (with cluster_sum for the normalisation and cluster_race for the
+// draw); tournament.cu still runs block_tournament (prf.cuh), one block
+// per row.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -41,6 +43,7 @@ struct ClusterTournamentShared {
   float warp[32];                 // the block's warp sums
   float best_s[CT_MAX_CLUSTER];   // each member's argmax, at member 0
   int best_i[CT_MAX_CLUSTER];
+  float sum[CT_MAX_CLUSTER];      // each member's cluster_sum part
 };
 
 __device__ __forceinline__ void ct_slice(int V, int C, int rank, int &lo,
@@ -166,20 +169,38 @@ __device__ __forceinline__ void cluster_tournament(
   }
 }
 
-// The argmax of the final row over the cluster (ties to the smaller
-// index): each block's winner goes to member 0, which returns the
-// cluster's in `best` (other members' value is unspecified).  Every
-// thread of every block must call it.
-__device__ __forceinline__ int cluster_argmax(const float *row, int lo,
-                                              int hi,
-                                              ClusterTournamentShared &sh) {
+// The sum over the cluster of each block's `part` (thread 0's value is
+// sent to every member), added in member order 0..C-1, so every member
+// returns the same float bit for bit.  Every thread of every block must
+// call it; it starts with a cluster barrier (every member has started, so
+// its shared memory may be written) and ends with one.
+__device__ __forceinline__ float cluster_sum(float part,
+                                             ClusterTournamentShared &sh) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
-  float best = -INFINITY;
-  int bi = INT_MAX;
-  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
-    arg_better(row[w - lo], w, best, bi);
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    const unsigned rank = cluster.block_rank();
+    for (int c = 0; c < C; ++c)
+      *cluster.map_shared_rank(&sh.sum[rank], (unsigned)c) = part;
+  }
+  cluster.sync();
+  float s = 0.f;
+  for (int c = 0; c < C; ++c) s += sh.sum[c];
+  return s;
+}
+
+// The cluster's best (score, index) from each thread's own (ties to the
+// smaller index, as arg_better): each block's winner goes to member 0,
+// which returns the cluster's (other members' value is unspecified).
+// Every thread of every block must call it, after a cluster barrier that
+// follows the blocks' start.
+__device__ __forceinline__ int cluster_pick(float best, int bi,
+                                            ClusterTournamentShared &sh) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
   block_argmax(best, bi);
   if (threadIdx.x == 0) {
     const unsigned rank = cluster.block_rank();
@@ -191,4 +212,28 @@ __device__ __forceinline__ int cluster_argmax(const float *row, int lo,
   bi = INT_MAX;
   for (int c = 0; c < C; ++c) arg_better(sh.best_s[c], sh.best_i[c], best, bi);
   return bi;
+}
+
+// The argmax of the final row over the cluster (ties to the smaller
+// index), at member 0.
+__device__ __forceinline__ int cluster_argmax(const float *row, int lo,
+                                              int hi,
+                                              ClusterTournamentShared &sh) {
+  float best = -INFINITY;
+  int bi = INT_MAX;
+  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
+    arg_better(row[w - lo], w, best, bi);
+  return cluster_pick(best, bi, sh);
+}
+
+// The Gumbel race log(U_w)/p_w over the cluster's row with `seed` (ties
+// to the smaller index, as block_race), the winner at member 0.
+__device__ __forceinline__ int cluster_race(const float *row, int lo, int hi,
+                                           uint32_t seed,
+                                           ClusterTournamentShared &sh) {
+  float best = -INFINITY;
+  int bi = INT_MAX;
+  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
+    arg_better(race_score(row[w - lo], seed, (uint32_t)w), w, best, bi);
+  return cluster_pick(best, bi, sh);
 }

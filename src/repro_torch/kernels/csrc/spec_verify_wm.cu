@@ -1,4 +1,4 @@
-// Fused watermarked verification tail of Alg. 1, one block per row:
+// Fused watermarked verification tail of Alg. 1:
 //   a_s = min(1, p_s(d_s) / q_s(d_s)), prefix = cumprod(u < a), n_acc,
 //   then one token from slot n_acc's row r = (p − q)_+ (r = p_K at the
 //   bonus slot K, where q is taken as 0):
@@ -11,19 +11,39 @@
 // Rows with live == 0 write zeros.
 //
 // Replaces: src/repro/kernels/spec_verify.py::spec_verify_wm_kernel
-// (body _wm_kernel), both FusedTail kinds.
+// (body _wm_kernel), both FusedTail kinds: the race as
+// spec_verify_wm_kernel, the tournament as
+// spec_verify_wm_tournament_kernel (two kernels, so their launches and
+// device times are told apart).
 //
-// Bound: the accept test reads 2·K floats; the tail reads the slot's p and
-// q rows, 8·V bytes per row (1 MB at B=4, V=32000: 0.3 us at 3.35 TB/s).
-// At serving shapes it is bound by launch latency.  Design: thread 0
-// gathers the 2·K probabilities directly (no one-hot pass over K·V); the
-// block then streams one row.  The tournament keeps the normalised row in
-// dynamic shared memory when 4·V bytes fit (V=32000: 128 KB), else in a
-// global scratch row the wrapper allocates (V=256128).  Only B of the 132
-// SMs are busy; that is the first thing a later change should fix.
+// Race: bound by its bytes (the slot's p and q rows, 8·V bytes a row: 1 MB
+// at B=4, V=32000, 0.3 us at 3.35 TB/s) and at serving shapes by launch
+// latency.  One block per row; warp 0 gathers the 2·K probabilities
+// directly (no one-hot pass over K·V), then the block streams one row.
+//
+// Tournament: bound by operations (m·V g-bit hashes a row, and the m
+// rounds of a row are serial: each needs the whole row's mass).  The
+// first port ran it in one 1024-thread block per row, 4 of 132 SMs busy
+// at B=4.  Now one row is split over a cluster of TAIL_CLUSTER = 8
+// blocks, as tournament_keyed.cu does: each member runs the accept test
+// itself (2·K gathered floats) and forms r over its slice of
+// ct_slice in dynamic shared memory (128 KB at V=256128; past
+// TAIL_SMEM_MAX in a global scratch row the wrapper allocates); the
+// members' partial sums of r go to every member (cluster_sum) and are
+// added in member order, so z is the same in every member bit for bit;
+// cluster_tournament runs the rounds (st.async onto mbarriers, no
+// cluster-wide barrier a round), then cluster_argmax or cluster_race
+// draws the token at member 0, which writes the outputs.  A row's sums
+// depend on V, the cluster size and the block size only, never on B or
+// the SM count.  What bounds it: the 30 serial rounds of a block
+// reduction and an exchange between SMs, plus two exchanges (z, the
+// draw).
 #include <cuda_runtime.h>
 
-#include "prf.cuh"
+#include "cluster_tournament.cuh"
+
+#define TAIL_CLUSTER 8               // blocks a tournament row
+#define TAIL_SMEM_MAX (200 * 1024)   // a slice in shared memory up to this
 
 struct VerifyArgs {
   const float *p;          // (B, K+1, V)
@@ -34,7 +54,7 @@ struct VerifyArgs {
   const long long *ctx;    // (B, K+1)
   const unsigned char *seen;  // (B, K+1)
   const unsigned char *live;  // (B,)
-  float *scratch;          // (B, V) or null when the row fits shared memory
+  float *scratch;          // (B, V), or null when a slice fits shared memory
   long long *n_acc;        // (B,)
   long long *prefix;       // (B, K)
   long long *etok;         // (B,)
@@ -43,100 +63,155 @@ struct VerifyArgs {
   uint32_t wm_stream, plain_resid, plain_bonus, draw_stream;
 };
 
-__global__ void __launch_bounds__(REPRO_THREADS)
-spec_verify_wm_kernel(VerifyArgs a) {
-  extern __shared__ float smem_row[];
-  __shared__ int s_nacc;
-  const int b = blockIdx.x, K = a.K, V = a.V, tid = threadIdx.x;
-  const size_t K1 = (size_t)K + 1;
-
-  if (!a.live[b]) {
-    if (tid == 0) {
-      a.n_acc[b] = 0;
-      a.etok[b] = 0;
-    }
-    for (int s = tid; s < K; s += blockDim.x) a.prefix[(size_t)b * K + s] = 0;
-    for (int s = tid; s < a.stat_dim; s += blockDim.x)
-      a.estat[(size_t)b * a.stat_dim + s] = 0.f;
-    return;
+// A dead row: zeros in every output (the block's threads).
+__device__ __forceinline__ void dead_row(const VerifyArgs &a, int b) {
+  if (threadIdx.x == 0) {
+    a.n_acc[b] = 0;
+    a.etok[b] = 0;
   }
+  for (int s = threadIdx.x; s < a.K; s += blockDim.x)
+    a.prefix[(size_t)b * a.K + s] = 0;
+  for (int s = threadIdx.x; s < a.stat_dim; s += blockDim.x)
+    a.estat[(size_t)b * a.stat_dim + s] = 0.f;
+}
 
-  if (tid == 0) {
-    int ok = 1, n = 0;
-    for (int s = 0; s < K; ++s) {
-      const long long d = a.tokens[(size_t)b * K + s];
-      const float pt = a.p[((size_t)b * K1 + s) * V + d];
-      const float qt = a.q[((size_t)b * K + s) * V + d];
-      const float acc = fminf(1.0f, pt / fmaxf(qt, REPRO_EPS));
-      ok = ok && (a.u[(size_t)b * K + s] < acc);
-      a.prefix[(size_t)b * K + s] = ok;
-      n += ok;
+// The accept test of row b: warp 0 gathers the 2·K probabilities, 32
+// slots at a time, and the first rejected slot is n_acc, the emitted
+// slot; returned at every thread.  Writes n_acc and the prefix when
+// `write`.
+__device__ __forceinline__ int accept_test(const VerifyArgs &a, int b,
+                                           bool write) {
+  __shared__ int s_nacc;
+  const int K = a.K, V = a.V;
+  const size_t K1 = (size_t)K + 1;
+  if (threadIdx.x < 32) {
+    int n = K;
+    for (int base = 0; base < K; base += 32) {
+      const int s = base + (int)threadIdx.x;
+      bool ok = true;
+      if (s < K) {
+        const long long d = a.tokens[(size_t)b * K + s];
+        const float pt = a.p[((size_t)b * K1 + s) * V + d];
+        const float qt = a.q[((size_t)b * K + s) * V + d];
+        const float acc = fminf(1.0f, pt / fmaxf(qt, REPRO_EPS));
+        ok = a.u[(size_t)b * K + s] < acc;
+      }
+      const unsigned rej = __ballot_sync(0xffffffffu, !ok);
+      if (rej != 0u) {
+        n = base + __ffs(rej) - 1;
+        break;
+      }
     }
-    a.n_acc[b] = n;
-    s_nacc = n;
+    if (write) {
+      for (int s = threadIdx.x; s < K; s += 32)
+        a.prefix[(size_t)b * K + s] = s < n;
+      if (threadIdx.x == 0) a.n_acc[b] = n;
+    }
+    if (threadIdx.x == 0) s_nacc = n;
   }
   __syncthreads();
-  const int slot = s_nacc;
+  return s_nacc;
+}
 
-  const uint32_t key = (uint32_t)a.keys[b];
-  const uint32_t ctx_s = (uint32_t)a.ctx[(size_t)b * K1 + slot];
-  const bool seen_s = a.seen[(size_t)b * K1 + slot] != 0;
+// The emitted slot's row and seeds.
+struct TailRow {
+  const float *ps, *qs;    // slot rows of p and q (qs null at the bonus)
+  bool seen;
+  uint32_t key, ctx, wm_s, pl_s;
+};
+
+__device__ __forceinline__ TailRow tail_row(const VerifyArgs &a, int b,
+                                            int slot) {
+  const int K = a.K, V = a.V;
+  const size_t K1 = (size_t)K + 1;
+  TailRow t;
+  t.key = (uint32_t)a.keys[b];
+  t.ctx = (uint32_t)a.ctx[(size_t)b * K1 + slot];
+  t.seen = a.seen[(size_t)b * K1 + slot] != 0;
   const uint32_t pl_stream = slot == K ? a.plain_bonus : a.plain_resid;
-  const uint32_t wm_s = seed_chain(seed_chain(key, a.wm_stream), ctx_s);
-  const uint32_t pl_s = seed_chain(seed_chain(key, pl_stream), ctx_s);
-  const float *ps = a.p + ((size_t)b * K1 + slot) * V;
-  const float *qs = slot < K ? a.q + ((size_t)b * K + slot) * V : nullptr;
+  t.wm_s = seed_chain(seed_chain(t.key, a.wm_stream), t.ctx);
+  t.pl_s = seed_chain(seed_chain(t.key, pl_stream), t.ctx);
+  t.ps = a.p + ((size_t)b * K1 + slot) * V;
+  t.qs = slot < K ? a.q + ((size_t)b * K + slot) * V : nullptr;
+  return t;
+}
 
-  if (!a.tournament) {
-    const uint32_t seed = seen_s ? pl_s : wm_s;
-    float best = -INFINITY;
-    int bi = INT_MAX;
-    for (int w = tid; w < V; w += blockDim.x) {
-      const float r = fmaxf(ps[w] - (qs ? qs[w] : 0.f), 0.f);
-      arg_better(race_score(r, seed, (uint32_t)w), w, best, bi);
-    }
-    block_argmax(best, bi);
-    if (tid == 0) {
-      a.etok[b] = bi;
-      a.estat[b] = prf_uniform(seed, (uint32_t)bi);
-    }
+// The race: one block per row.
+__global__ void __launch_bounds__(REPRO_THREADS)
+spec_verify_wm_kernel(VerifyArgs a) {
+  const int b = blockIdx.x, V = a.V, tid = threadIdx.x;
+  if (!a.live[b]) {
+    dead_row(a, b);
     return;
   }
-
-  // tournament: normalise r into the working row
-  float *row = a.scratch ? a.scratch + (size_t)b * V : smem_row;
-  float part = 0.f;
+  const TailRow t = tail_row(a, b, accept_test(a, b, true));
+  const uint32_t seed = t.seen ? t.pl_s : t.wm_s;
+  float best = -INFINITY;
+  int bi = INT_MAX;
   for (int w = tid; w < V; w += blockDim.x) {
-    const float r = fmaxf(ps[w] - (qs ? qs[w] : 0.f), 0.f);
-    row[w] = r;
+    const float r = fmaxf(t.ps[w] - (t.qs ? t.qs[w] : 0.f), 0.f);
+    arg_better(race_score(r, seed, (uint32_t)w), w, best, bi);
+  }
+  block_argmax(best, bi);
+  if (tid == 0) {
+    a.etok[b] = bi;
+    a.estat[b] = prf_uniform(seed, (uint32_t)bi);
+  }
+}
+
+// The tournament: one row over a cluster; block `rank` holds the slice
+// [lo, hi) of the row.
+__global__ void __launch_bounds__(REPRO_THREADS)
+spec_verify_wm_tournament_kernel(VerifyArgs a) {
+  extern __shared__ float smem_row[];
+  __shared__ ClusterTournamentShared sh;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C, V = a.V, tid = threadIdx.x;
+  if (!a.live[b]) {            // the whole cluster leaves together
+    if (rank == 0) dead_row(a, b);
+    return;
+  }
+  const TailRow t = tail_row(a, b, accept_test(a, b, rank == 0));
+  int lo, hi;
+  ct_slice(V, C, rank, lo, hi);
+  float *row = a.scratch ? a.scratch + (size_t)b * V + lo : smem_row;
+
+  // r = (p − q)_+ over the slice, normalised by the row's sum
+  float part = 0.f;
+  for (int w = lo + tid; w < hi; w += blockDim.x) {
+    const float r = fmaxf(t.ps[w] - (t.qs ? t.qs[w] : 0.f), 0.f);
+    row[w - lo] = r;
     part += r;
   }
-  const float z = fmaxf(block_sum(part), REPRO_EPS);
-  for (int w = tid; w < V; w += blockDim.x) row[w] = row[w] / z;
+  const float z = fmaxf(cluster_sum(block_sum(part), sh), REPRO_EPS);
+  for (int w = lo + tid; w < hi; w += blockDim.x)
+    row[w - lo] = row[w - lo] / z;
 
   int tok;
-  if (seen_s) {
-    tok = block_race(row, V, pl_s);       // raw normalised row, plain seed
+  if (t.seen) {
+    tok = cluster_race(row, lo, hi, t.pl_s, sh);  // normalised row, plain seed
   } else {
-    block_tournament(row, V, a.m, wm_s);
+    cluster_tournament(row, lo, hi, V, a.m, t.wm_s, sh);
     if (a.degenerate) {
-      float best = -INFINITY;
-      int bi = INT_MAX;
-      for (int w = tid; w < V; w += blockDim.x) arg_better(row[w], w, best, bi);
-      block_argmax(best, bi);
-      tok = bi;
+      tok = cluster_argmax(row, lo, hi, sh);
     } else {
-      const uint32_t dw_s = seed_chain(seed_chain(key, a.draw_stream), ctx_s);
-      tok = block_race(row, V, dw_s);
+      const uint32_t dw_s = seed_chain(seed_chain(t.key, a.draw_stream), t.ctx);
+      tok = cluster_race(row, lo, hi, dw_s, sh);
     }
   }
+  if (rank != 0) return;
   if (tid == 0) a.etok[b] = tok;
   for (int l = tid; l < a.stat_dim; l += blockDim.x)
     a.estat[(size_t)b * a.stat_dim + l] =
-        prf_gbit(wm_s, (uint32_t)tok + (uint32_t)V * (uint32_t)l);
+        prf_gbit(t.wm_s, (uint32_t)tok + (uint32_t)V * (uint32_t)l);
 }
 
-// scratch == null selects the shared-memory row (smem_bytes = 4·V).
+// The race: one block per row.  The tournament: one cluster of
+// TAIL_CLUSTER blocks per row, each slice in shared memory (scratch ==
+// null) when 4 · ceil(V / TAIL_CLUSTER) <= TAIL_SMEM_MAX, else in scratch.
 extern "C" int spec_verify_wm_launch(
     const void *p, const void *q, const void *tokens, const void *u,
     const void *keys, const void *ctx, const void *seen, const void *live,
@@ -168,9 +243,32 @@ extern "C" int spec_verify_wm_launch(
   a.plain_resid = plain_resid;
   a.plain_bonus = plain_bonus;
   a.draw_stream = draw_stream;
-  const int smem = (tournament && scratch == nullptr) ? 4 * V : 0;
-  cudaError_t e = allow_smem(spec_verify_wm_kernel, smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!tournament) {
+    spec_verify_wm_kernel<<<B, REPRO_THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int slice = (V + TAIL_CLUSTER - 1) / TAIL_CLUSTER;
+  if (scratch == nullptr && 4 * slice > TAIL_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int smem = scratch == nullptr ? 4 * slice : 0;
+  cudaError_t e = allow_smem(spec_verify_wm_tournament_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  spec_verify_wm_kernel<<<B, REPRO_THREADS, smem, (cudaStream_t)stream>>>(a);
+  const int threads =
+      slice >= REPRO_THREADS ? REPRO_THREADS : ((slice + 31) / 32) * 32;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * TAIL_CLUSTER);
+  cfg.blockDim = dim3(threads > 0 ? threads : 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = TAIL_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, spec_verify_wm_tournament_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,10 @@ DEFAULT_STREAMS = (_prf.STREAM_TARGET, _prf.STREAM_PLAIN + 2,
 # a working row of 4·V bytes lives in shared memory up to this size
 # (V <= 51200); past it the kernels keep the row in device memory
 SMEM_ROW_MAX = 200 * 1024
+# the fused tail's tournament splits a row over a cluster of this many
+# blocks (csrc/spec_verify_wm.cu's TAIL_CLUSTER), each slice of
+# ceil(V / TAIL_CLUSTER) entries in shared memory up to SMEM_ROW_MAX
+TAIL_CLUSTER = 8
 # the paged-attention kernel's head sizes: multiples of 8 (16-byte bf16
 # vectors) up to 256 (csrc/paged_attention.cu's PA_MAX_HD)
 PAGED_MAX_HD = 256
@@ -40,6 +44,9 @@ PAGED_MAX_HD = 256
 # memory a block may opt into on sm_90
 WKV_HEAD_DIMS = (16, 32, 64, 128)
 SMEM_BLOCK_MAX = 227 * 1024
+# the SSD step kernel keeps a row's N state columns in registers over at
+# most 32 lanes of 4·8 columns (csrc/ssd_step.cu's SSD_MAX_NK)
+SSD_MAX_N = 1024
 
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0,
                             "spec_verify_wm_tournament": 0,
@@ -206,8 +213,9 @@ def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
     tournament = kind == "tournament"
     stat_dim = m if tournament else 1
     dev = p.device
+    slice_bytes = 4 * -(-V // TAIL_CLUSTER)
     scratch = (torch.empty((B, V), dtype=torch.float32, device=dev)
-               if tournament and 4 * V > SMEM_ROW_MAX else None)
+               if tournament and slice_bytes > SMEM_ROW_MAX else None)
     n_acc = torch.empty(B, dtype=torch.int64, device=dev)
     prefix = torch.empty((B, K), dtype=torch.int64, device=dev)
     etok = torch.empty(B, dtype=torch.int64, device=dev)
@@ -334,39 +342,44 @@ def _ssd_args(name, la, dtx, Bf, Cf, h0):
             _arg(h0, torch.float32, (lead[0], lead[-1], hd, N), "h0"), dtype)
 
 
-def ssd_step(la, dtx, Bf, Cf, h0):
-    """One Mamba2 SSD decode step, state in / state out: la (B, H), dtx (B,
-    H, hd), B and C (B, N), h0 (B, H, hd, N) -> (y (B, H, hd) f32, the new
-    state f32, a new buffer).  The kernel takes la and h0 in float32 and
-    dtx, B, C in one type, float32 or bfloat16."""
-    if not _on_cuda(la, dtx, Bf, Cf, h0):
-        return ref.ssd_step_ref(la, dtx, Bf, Cf, h0)
-    la, dtx, Bf, Cf, h0, dtype = _ssd_args("ssd_step", la, dtx, Bf, Cf, h0)
-    B, H, hd = dtx.shape
-    N = Bf.shape[-1]
-    y = torch.empty((B, H, hd), dtype=torch.float32, device=la.device)
+def _ssd_step_launch(name, la, dtx, Bf, Cf, h0):
+    """The step kernel over the inputs' S steps (S = 1 without a time
+    axis): one launch, counted under ``ssd_step``."""
+    la, dtx, Bf, Cf, h0, dtype = _ssd_args(name, la, dtx, Bf, Cf, h0)
+    B, H, hd, N = h0.shape
+    S = la.shape[1] if la.dim() == 3 else 1
+    if N > SSD_MAX_N:
+        raise ValueError(f"{name}: state width N={N}; the kernel takes up "
+                         f"to {SSD_MAX_N}")
+    y = torch.empty(dtx.shape, dtype=torch.float32, device=la.device)
     h1 = torch.empty_like(h0)
     rc = build.load().ssd_step_launch(
         _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
-        _ptr(h1), B, H, hd, N, int(dtype == torch.bfloat16), _stream(la))
+        _ptr(h1), B, S, H, hd, N, int(dtype == torch.bfloat16), _stream(la))
     _launched("ssd_step", rc)
     return y, h1
+
+
+def ssd_step(la, dtx, Bf, Cf, h0):
+    """One Mamba2 SSD decode step, state in / state out: la (B, H), dtx (B,
+    H, hd), B and C (B, N), h0 (B, H, hd, N) -> (y (B, H, hd) f32, the new
+    state f32, a new buffer).  The kernel takes la and h0 in float32, dtx,
+    B, C in one type, float32 or bfloat16, and N up to SSD_MAX_N."""
+    if not _on_cuda(la, dtx, Bf, Cf, h0):
+        return ref.ssd_step_ref(la, dtx, Bf, Cf, h0)
+    return _ssd_step_launch("ssd_step", la, dtx, Bf, Cf, h0)
 
 
 def ssd_scan(la, dtx, Bf, Cf, h0):
     """The per-timestep Mamba2 recurrence over a sequence: la (B, S, H),
     dtx (B, S, H, hd), B and C (B, S, N), h0 (B, H, hd, N) -> (y (B, S, H,
-    hd) f32, the final state f32).  A CPU tensor takes ``ref.ssd_ref``; on
-    the card the ``ssd_step`` kernel runs once per timestep (one launch
-    each, counted under ``ssd_step``)."""
+    hd) f32, the final state f32, a new buffer).  A CPU tensor takes
+    ``ref.ssd_ref``; on the card the ``ssd_step`` kernel walks the S steps
+    in one launch (counted once under ``ssd_step``), and gives bit for
+    bit what S calls of ``ssd_step`` give.  Types as ``ssd_step``."""
     if not _on_cuda(la, dtx, Bf, Cf, h0):
         return ref.ssd_ref(la, dtx, Bf, Cf, h0)
-    steps = [a.transpose(0, 1).contiguous() for a in (la, dtx, Bf, Cf)]
-    h, ys = h0, []
-    for t in range(la.shape[1]):
-        y, h = ssd_step(*(a[t] for a in steps), h)
-        ys.append(y)
-    return torch.stack(ys, 1), h
+    return _ssd_step_launch("ssd_scan", la, dtx, Bf, Cf, h0)
 
 
 def ssd(la, dtx, Bf, Cf, h0, *, chunk: int):

@@ -256,7 +256,9 @@ def ssd_ref(la, dtx, Bf, Cf, h0):
 
     la (B, S, H) log-decay (<= 0); dtx (B, S, H, hd); Bf, Cf (B, S, N);
     h0 (B, H, hd, N).  Returns (y (B, S, H, hd) f32, final state f32).  On
-    the card this path is the ``ssd_step`` kernel once per timestep."""
+    the card this path is the ``ssd_step`` kernel, one launch that walks the
+    S steps; its state is S applications of ``ssd_step_ref``, bit for bit
+    (the same operations), and its y within ``ssd_tol(..., chunk=0)``."""
     h = h0.float()
     ys = []
     for t in range(la.shape[1]):

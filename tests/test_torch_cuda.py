@@ -15,10 +15,12 @@ within 1e-5 (another order of float sums); bfloat16 within
 ref.paged_attention_tol, per element: two bf16 ulps of the element plus
 two flips of the row's worst score or probability rounding (another sum
 order may round a score, a probability or the output one ulp the other
-way).  The recurrent kernels (wkv, wkv_step, ssd, ssd_step): every output,
-y and the state, within ref.wkv_tol / ref.ssd_tol, chip_smoke.py's bound
-(twice γ_D times the output's envelope, the plain version run on absolute
-values)."""
+way).  The recurrent kernels (wkv, wkv_step, ssd, ssd_step and its
+per-timestep scan): every output, y and the state, within ref.wkv_tol /
+ref.ssd_tol, chip_smoke.py's bound (twice γ_D times the output's
+envelope, the plain version run on absolute values); the scan equal to a
+loop of steps, and a row of the fused tail's tournament alone equal to it
+in a batch, bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -319,6 +321,7 @@ RECURRENT = {
     ("wkv", (2, 37, 3, 64)), ("wkv", (1, 5, 2, 32)),
     ("wkv", (1, 37, 2, 128)), ("wkv", (2, 9, 3, 16)),
     ("ssd_step", (3, 5, 64, 64)), ("ssd_step", (2, 3, 16, 8)),
+    ("ssd_step", (2, 3, 5, 6)), ("ssd_step", (1, 2, 8, 200)),
     ("ssd", (2, 37, 3, 64, 64)), ("ssd", (1, 16, 2, 16, 8)),
     ("ssd", (1, 5, 2, 32, 16))])
 def test_recurrent_kernels_match_plain_versions(cuda, kernel, shape,
@@ -359,12 +362,104 @@ def test_recurrent_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.ssd_step(la.bfloat16(), r, bc, bc, h0)
     with pytest.raises(ValueError):              # B of the wrong width
         ops.ssd_step(la, r, bc[:, :8], bc, h0)
+    with pytest.raises(ValueError):              # N past the registers
+        wide = torch.zeros((2, 1032), device=cuda)
+        ops.ssd_step(la, r, wide, wide,
+                     torch.zeros((2, 3, 64, 1032), device=cuda))
     with pytest.raises(ValueError):              # a chunk past shared memory
         ops.ssd(la[:, None].expand(2, 300, 3).contiguous(),
                 torch.zeros((2, 300, 3, 256), device=cuda),
                 torch.zeros((2, 300, 256), device=cuda),
                 torch.zeros((2, 300, 256), device=cuda),
                 torch.zeros((2, 3, 256, 256), device=cuda), chunk=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hd,N", [(64, 64, 64), (3, 5, 6), (2, 16, 200)])
+@pytest.mark.parametrize("S", [1, 7, 64])
+def test_ssd_scan_equals_a_loop_of_steps(cuda, S, H, hd, N, dtype):
+    """The per-timestep scan is one launch of the step kernel and gives,
+    bit for bit, what S launches of ops.ssd_step give (y and the state);
+    both are within ref.ssd_tol(..., chunk=0) of the plain version.  N=6
+    and hd=5 take the kernel's unaligned copies, N=200 two column groups
+    a lane."""
+    args = _recurrent_inputs("ssd", (2, S, H, hd, N), dtype, cuda,
+                             seed=S + N)
+    ops.reset_launches()
+    y, h = ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_step"] == 1 and sum(ops.LAUNCHES.values()) == 1
+    la, dtx, Bf, Cf, h0 = args
+    hs, ys = h0, []
+    for t in range(S):
+        yt, hs = ops.ssd_step(la[:, t], dtx[:, t], Bf[:, t], Cf[:, t], hs)
+        ys.append(yt)
+    assert torch.equal(h, hs) and torch.equal(y, torch.stack(ys, 1))
+    for out, want, tol in zip((y, h), ref.ssd_ref(*args),
+                              ref.ssd_tol(*args, chunk=0)):
+        assert bool(((out - want).abs() <= tol).all()), \
+            float((out - want).abs().max())
+
+
+@pytest.mark.gpu
+def test_ssd_step_state_off_the_16_byte_grid(cuda):
+    """A state that is not 16-byte aligned (read element by element) gives
+    what an aligned one gives, bit for bit."""
+    la, dtx, Bf, Cf, h0 = _recurrent_inputs("ssd_step", (3, 4, 64, 64),
+                                            torch.float32, cuda, seed=9)
+    odd = torch.empty(h0.numel() + 1, device=cuda)[1:].view(h0.shape)
+    odd.copy_(h0)
+    y1, s1 = ops.ssd_step(la, dtx, Bf, Cf, h0)
+    y2, s2 = ops.ssd_step(la, dtx, Bf, Cf, odd)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+TOURNAMENT_TAIL = FusedTail(kind="tournament", m=30, stat_dim=30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("degenerate", [False, True])
+@pytest.mark.parametrize("V", [96, 32000, 256128])
+def test_spec_verify_wm_tournament_row_alone_equals_batched(cuda, V,
+                                                            degenerate):
+    """The tournament tail's rows do not depend on the batch around them:
+    each row alone equals the same row in a batch of 8 (a bonus row, a
+    seen row and a dead row among them), every output bit for bit."""
+    args = _inputs(8, 4, V, cuda, seed=V + 3)
+    tail = FusedTail(kind="tournament", m=30, stat_dim=30,
+                     degenerate=degenerate)
+    batched = ops.spec_verify_wm(*args, tail=tail)
+    for b in range(8):
+        alone = ops.spec_verify_wm(*(x[b:b + 1] for x in args), tail=tail)
+        assert all(torch.equal(a[0], w[b]) for a, w in zip(alone, batched)), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [32000, 256128])
+def test_spec_verify_wm_tournament_serving_batch_matches_plain(cuda, V):
+    """The serving step's shape: 8 rows, every one live, no slot seen.
+    n_acc and the prefix bitwise, the token equal outside margin rows, its
+    g-bits equal on equal tokens."""
+    p, q, toks, u, keys, ctx, seen, live = _inputs(8, 4, V, cuda, seed=V + 8)
+    seen[:] = False
+    live[:] = True
+    args = (p, q, toks, u, keys, ctx, seen, live)
+    ops.reset_launches()
+    nk, pk, tk, sk = ops.spec_verify_wm(*args, tail=TOURNAMENT_TAIL)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spec_verify_wm_tournament"] == 1
+    nr, pr, tr, sr = ref.spec_verify_wm_ref(
+        *args, streams=ops.DEFAULT_STREAMS, kind="tournament", m=30)
+    assert torch.equal(nk, nr) and torch.equal(pk, pr)
+    r, _, wm_s, _, dw_s = ref.tail_rows(p, q, nr, keys, ctx, seen,
+                                        streams=ops.DEFAULT_STREAMS)
+    rn = r / torch.clamp_min(r.sum(-1, keepdim=True), ref.EPS)
+    pz = ref.tournament_rounds(rn, wm_s, 30)
+    marg = ref.margin(ref.race_scores(pz, dw_s)[0])
+    same = tk == tr
+    assert bool((same | (marg < MARGIN)).all())
+    assert torch.equal(sk[same], sr[same])
 
 
 @pytest.mark.gpu

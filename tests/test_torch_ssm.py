@@ -163,6 +163,34 @@ def test_ssd_step_plain_version_matches_reference(B, H, hd, N):
     _close(got, JR.ssd_step_ref(*jargs), 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 7, 64])
+def test_ssd_scan_state_is_a_loop_of_steps(S, dtype):
+    """The identity the card's one-launch scan rests on: the per-timestep
+    plain version's final state is S applications of the step's plain
+    version, bit for bit (the same rounded operations), and its y is
+    within ref.ssd_tol(..., chunk=0) of the steps' y (another order of the
+    sum over N).  The reference's own loop of steps agrees within 1e-5."""
+    la, dtx, Bf, Cf, h0 = map(torch.from_numpy,
+                              _ssd_inputs(S, 2, S, 3, 8, 12))
+    dtx, Bf, Cf = (a.to(dtype) for a in (dtx, Bf, Cf))
+    y, h = ref.ssd_ref(la, dtx, Bf, Cf, h0)
+    hs, ys = h0, []
+    for t in range(S):
+        yt, hs = ref.ssd_step_ref(la[:, t], dtx[:, t], Bf[:, t], Cf[:, t],
+                                  hs)
+        ys.append(yt)
+    assert torch.equal(h, hs)
+    ys = torch.stack(ys, 1)
+    tol_y, _ = ref.ssd_tol(la, dtx, Bf, Cf, h0, chunk=0)
+    assert bool(((y - ys).abs() <= tol_y).all())
+    jh = jnp.asarray(h0.numpy())
+    for t in range(S):
+        _, jh = JR.ssd_step_ref(*(jnp.asarray(a[:, t].float().numpy())
+                                  for a in (la, dtx, Bf, Cf)), jh)
+    _close((h,), (jh,), 1e-5)
+
+
 def test_tolerances_hold_the_plain_versions():
     """The bounds chip_smoke holds the kernels to (ref.wkv_tol /
     ref.ssd_tol) cover the reference's own Pallas programs against the
