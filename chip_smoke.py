@@ -31,8 +31,10 @@ Phases, each fatal on failure, in this order:
      per-timestep scan (one launch a call) over zamba2-1.2b prompts of
      16, 64 and 128 tokens,
      bf16 and fp32 inputs, every output (y and the state) within its
-     rounding bound, which must also see three emulated faults; times of
-     kernel, plain version and bound;
+     rounding bound, which must also see three emulated faults, the WKV
+     state bit for bit, and each row of the wkv and ssd batches alone
+     equal to the batch's; times of kernel, plain version and bound (the
+     chunked scan's at the TF32 tensor-core rate it runs at);
   3. the dense Algorithm 1 slice at full width: LLAMA_7B target and
      LLAMA_68M draft in bf16 (random weights from a seed), B=4, prompt 16,
      48 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
@@ -95,6 +97,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 DEV = "cuda"                 # rehearsals on the CPU set "cpu"
 MARGIN_TOL = 1e-5            # race margin under which a token may flip
 DIST_RTOL, DIST_ATOL = 1e-4, 1e-7   # tournament distributions (sum order)
@@ -1038,25 +1041,80 @@ def rec_faults(kernel, args):
             "b_c_swapped": (la, dtx, Cf, Bf, h0)}
 
 
+def ssd_tc_ops(shape, chunk=REC_CHUNK, padded=False):
+    """Float operations of the chunked scan's products on tensor cores,
+    three TF32 products a float32 multiply-add.  By default what the
+    chunked algorithm needs at the real token count: per (b, chunk) of n
+    tokens, C.B^T over its n (n + 1) / 2 pairs on or below the diagonal
+    (it depends on neither h nor d), and per head y's intra-chunk part over
+    those pairs, its carried part and the state's (n hd N each).  With
+    ``padded``, what csrc/ssd.cu runs: chunks of Lc = min(chunk, S) rounded
+    up to 16 rows (the tail too), N up to 8, hd to 8 for y and to 16 for
+    the state, and the R (R + 1) 16x8 tiles of C.B^T once per (b, h)."""
+    B, S, H, hd, N = (shape[k] for k in ("B", "S", "H", "hd", "N"))
+    Lc = min(chunk, S)
+    if padded:
+        Lp, Np = -(-Lc // 16) * 16, -(-N // 8) * 8
+        hd8, hd16 = -(-hd // 8) * 8, -(-hd // 16) * 16
+        tiles = (Lp // 16) * (Lp // 16 + 1)
+        macs = H * (tiles * 128 * Np + tiles * 128 * hd8 + Lp * Np * hd8
+                    + hd16 * Np * Lp) * -(-S // Lc)
+    else:
+        macs = 0
+        for t0 in range(0, S, Lc):
+            n = min(Lc, S - t0)
+            pairs = n * (n + 1) // 2
+            macs += pairs * N + H * (pairs * hd + 2 * n * hd * N)
+    return 3 * 2 * macs * B
+
+
 def rec_bound(kernel, shape, el):
     """Bytes: every input read once, y and the state written once.  Float
     operations: what the recurrence itself needs per real token and head,
     not what the kernel's algorithm does.  WKV: y_j = Σ_i r_i s_ij +
     v_j Σ_i r_i u_i k_i and s'_ij = w_i s_ij + k_i v_j, 5 per state element
     plus 5 per value column; SSD: h' = exp(la) h + dtx ⊗ B and y = h'·C,
-    5 per state element plus the exp (the chunked scan's C·Bᵀ tiles and
-    its padded last chunk are not counted)."""
+    5 per state element plus the exp, at the float32 rate.  The chunked
+    scan runs its products on tensor cores instead: its bound takes the
+    operations the chunked algorithm needs at the real token count
+    (``ssd_tc_ops``) at the TF32 rate, and the float32 figure stays beside
+    it as ``bound_fp32_ms``; ``kernel_work_ms`` is the time of the products
+    the kernel runs, padded tiles and per-head C.B^T included, at that
+    rate (not a bound).  Returns the record's bound keys."""
     B = shape["B"]
     S = shape.get("S", 1)
     if kernel.startswith("wkv"):
         H, hd = shape["H"], shape["hd"]
         tok = B * S * H * hd
         nbytes = tok * (3 * el + 4 + 4) + H * hd * el + 2 * 4 * B * H * hd ** 2
-        return bound_ms(nbytes, 5 * tok * (hd + 1))
+        bnd, by = bound_ms(nbytes, 5 * tok * (hd + 1))
+        return dict(bound_ms=bnd, bound_by=by)
     H, hd, N = shape["H"], shape["hd"], shape["N"]
     nbytes = (B * S * H * (4 + hd * el + 4 * hd) + 2 * B * S * N * el
               + 2 * 4 * B * H * hd * N)
-    return bound_ms(nbytes, B * S * H * (5 * hd * N + 1))
+    bnd, by = bound_ms(nbytes, B * S * H * (5 * hd * N + 1))
+    if kernel != "ssd":
+        return dict(bound_ms=bnd, bound_by=by)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = ssd_tc_ops(shape) / TF32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_tc),
+                bound_by="bytes" if t_b >= t_tc else "operations",
+                bound_fp32_ms=bnd, bound_tc_ms=t_tc,
+                kernel_work_ms=ssd_tc_ops(shape, padded=True)
+                / TF32_OPS_PER_S * 1e3)
+
+
+def rows_alone_equal(fn, args, kernel, got):
+    """Each row of a batch run alone gives, bit for bit, what it gives in
+    the batch (every output); u of the WKV kernels has no batch axis."""
+    import torch
+    for b in range(args[0].shape[0]):
+        row = [a if kernel.startswith("wkv") and i == 4 else
+               a[b:b + 1].clone() for i, a in enumerate(args)]
+        if not all(torch.equal(alone, batched[b:b + 1])
+                   for alone, batched in zip(fn(*row), got)):
+            return False
+    return True
 
 
 def phase_recurrent_kernels():
@@ -1066,9 +1124,12 @@ def phase_recurrent_kernels():
     inputs.  Every output (y and the state) must lie within its tolerance
     (ref.wkv_tol / ref.ssd_tol: twice γ_D times the output's envelope, the
     plain version run on absolute values), and each of three emulated
-    faults must exceed it by FAULT_FACTOR.  The kernel's, the plain
-    version's and the bound's times; no single PyTorch call computes
-    these recurrences, so there is no library yardstick."""
+    faults must exceed it by FAULT_FACTOR.  The WKV kernels' state must
+    equal the plain version's bit for bit, and in the batch cases of wkv
+    and ssd each row alone must give what it gives in the batch.  The
+    kernel's, the plain version's and the bound's times; no single
+    PyTorch call computes these recurrences, so there is no library
+    yardstick."""
     import torch
     from repro_torch.kernels import ops
     record = []
@@ -1097,6 +1158,13 @@ def phase_recurrent_kernels():
             err = max(errs)
             check(ratio <= 1, f"{tag}: max abs err {err}, {ratio} times its "
                   "tolerance")
+            if kernel.startswith("wkv"):
+                check(errs[1] == 0.0, f"{tag}: state off by {errs[1]}, not "
+                      "bit for bit")
+            alone = None
+            if kernel in ("wkv", "ssd") and shape["B"] > 1:
+                alone = rows_alone_equal(fn, args, kernel, got)
+                check(alone, f"{tag}: a row alone differs from the batch")
             faults = {}
             for fault, fargs in rec_faults(kernel, args).items():
                 bad = fn(*fargs)
@@ -1108,14 +1176,13 @@ def phase_recurrent_kernels():
                   f"{tag}: the tolerance misses a fault: {faults}")
             times = timings(f"{launched}_kernel", lambda: fn(*args),
                             lambda: plain(*args))
-            bnd, by = rec_bound(kernel, shape,
-                                torch.finfo(dtype).bits // 8)
+            bound = rec_bound(kernel, shape, torch.finfo(dtype).bits // 8)
             record.append(dict(case=tag, kernel=launched, max_abs_err=err,
                                err_over_tol=ratio,
                                y_err=errs[0], state_err=errs[1],
+                               rows_alone_equal=alone,
                                tol_median=float(tols[0].median()), **faults,
-                               **times, library_ms=None, bound_ms=bnd,
-                               bound_by=by))
+                               **times, library_ms=None, **bound))
     for r in record:
         print("kernel-check " + json.dumps(r))
     return record

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the paged-attention, keyed-tournament, fused-tail tournament and
-SSD step / scan kernels of two checkouts on one CUDA card.
+"""Time the paged-attention, keyed-tournament, fused-tail tournament, SSD
+step / scan, chunked SSD and WKV kernels of two checkouts on one CUDA
+card.
 
     python3 scripts/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT
 
@@ -15,13 +16,17 @@ raises on them).  Then, on NEW's inputs through each checkout's wrappers:
 the fused tail at NEW's phase 2 cases (``tail_cases``: the race and the
 tournament, degenerate or not, at B=4 and V=32000 and 256128, and the
 tournament's B=8 serving case), the median of its launches; and NEW's
-phase 2c SSD cases, the decode step
-(``ssd_step``, the median of its launches) and the per-timestep scan
-(``ssd_scan``: the device time of every kernel of one call, however many
-launches it makes, and, as "... wall", the median wall time of one call,
-host work included).  Prints one JSON line per run, then one line per
-case: its ms in the four runs.  Compare the two versions only within one
-such call: the card's clocks and the host differ between calls.
+phase 2c cases of the SSD and WKV sequence kernels and the SSD step: the
+chunked scan (``ssd``, at NEW's ``REC_CHUNK``), ``wkv`` and the decode
+step (``ssd_step``), the median of their launches, and the per-timestep
+scan (``ssd_scan``: the device time of every kernel of one call, however
+many launches it makes, and, as "... wall", the median wall time of one
+call, host work included).  Prints one JSON line per run, then one line per
+case: its ms in the four runs.  The ``ssd`` and ``wkv`` cases are also
+timed with every input one element off the 16-byte grid ("... off the
+16-byte grid": the kernels' element-wise copies).  Compare the two
+versions only within one such call: the card's clocks and the host differ
+between calls.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import subprocess
 import sys
 
 RUN = r"""
-import importlib.util, inspect, json, sys
+import functools, importlib.util, inspect, json, sys
 root, new_root = sys.argv[1], sys.argv[2]
 sys.path[:0] = [root + "/src", root]
 import chip_smoke
@@ -103,20 +108,28 @@ for name, B, V, tail, serving in new.tail_cases():
         lambda: ops.spec_verify_wm(*args, tail=tail),
         kernel="spec_verify_wm")
 for i, (name, kernel, shape) in enumerate(new.REC_CASES):
-    if kernel not in ("ssd_step", "ssd_scan"):
+    if kernel not in ("ssd_step", "ssd_scan", "ssd", "wkv"):
         continue
     for dtype in (torch.bfloat16, torch.float32):
         case = f"{name} {str(dtype)[6:]}"
         args = new.rec_inputs(kernel, shape, dtype, seed=i + 1)
         fn = getattr(ops, kernel)
+        if kernel == "ssd":
+            fn = functools.partial(fn, chunk=new.REC_CHUNK)
         try:
             fn(*args)
         except ValueError:
             ms[case] = "refused"
             continue
-        if kernel == "ssd_step":
+        if kernel != "ssd_scan":        # one launch of <kernel>_kernel
             ms[case] = chip_smoke.device_ms(lambda: fn(*args),
-                                            kernel="ssd_step_kernel")
+                                            kernel=kernel + "_kernel")
+            if kernel in ("ssd", "wkv"):  # every base one element off
+                odd = [torch.empty(a.numel() + 1, dtype=a.dtype,
+                                   device=a.device)[1:].view(a.shape)
+                       .copy_(a) for a in args]
+                ms[case + " off the 16-byte grid"] = chip_smoke.device_ms(
+                    lambda: fn(*odd), kernel=kernel + "_kernel")
         else:
             ms[case] = per_call_ms(lambda: fn(*args))
             ms[case + " wall"] = chip_smoke.call_ms(lambda: fn(*args))

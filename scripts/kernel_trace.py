@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Where a block's time goes in the paged-attention, keyed-tournament,
-fused-tail tournament and SSD step kernels, on one CUDA card.
+fused-tail tournament, SSD step, chunked SSD and WKV kernels, on one CUDA
+card.
 
     python3 scripts/kernel_trace.py
 
 Builds a traced copy of ``csrc/paged_attention.cu``, of
 ``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``), of
-``csrc/spec_verify_wm.cu`` and of ``csrc/ssd_step.cu`` into
-``build/kernel_trace/``: thread 0 of every block writes ``%globaltimer``
-at the marks below.  Runs them at ``chip_smoke.PAGED_CASES`` (bf16),
-``chip_smoke.TOURNAMENT_KEYED_SHAPES``, the tail's tournament at the
-serving step's inputs (every row live, no slot seen) at those shapes, and
-``chip_smoke.REC_CASES``' SSD step and scan cases (float32), and prints
-one JSON line per case:
-the span of the launch, the median life of a block, the quartiles of the
-blocks' start times (how many waves), and the median time between
-consecutive marks.  The traced copies only add the marks (one global
-store each): their outputs must equal the product kernels' bit for bit,
-and the script fails otherwise, or if a mark's anchor is no longer in
-the source.
+``csrc/spec_verify_wm.cu``, of ``csrc/ssd_step.cu``, of ``csrc/ssd.cu``
+and of ``csrc/wkv.cu`` into ``build/kernel_trace/``: thread 0 of every
+block reads ``%globaltimer`` at the marks below.  Runs them at
+``chip_smoke.PAGED_CASES`` (bf16), ``chip_smoke.TOURNAMENT_KEYED_SHAPES``,
+the tail's tournament at the serving step's inputs (every row live, no
+slot seen) at those shapes, ``chip_smoke.REC_CASES``' SSD step and scan
+cases (float32) and its ``ssd`` and ``wkv`` cases (float32 and bfloat16),
+and prints one JSON line per case: the span of the launch, the median
+life of a block, the quartiles of the blocks' start times (how many
+waves), and the median time between consecutive marks; for ``ssd`` and
+``wkv``, which loop over chunks or tiles, the median time of each phase
+summed over the loop (kept in thread 0's registers, written once at the
+end).  The traced copies only add the marks: their outputs must equal the
+product kernels' bit for bit, and the script fails otherwise, or if a
+mark's anchor is no longer in the source.
 """
 from __future__ import annotations
 
@@ -50,6 +53,32 @@ extern "C" int trace_get(void *dst, int n) {
           blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);    \
       if (b_ < 8192) trace_buf[b_ * 16 + (n)] = t_;                          \
     }                                                                        \
+  } while (0)
+// phases inside a loop: ACC(n) adds the time since the last ACC (or
+// TRACE_START) to thread 0's register sum n; TRACE_END() writes the sums
+// to slots 1 .. 14 and the end time to slot 15
+#define TRACE_START()                                                        \
+  unsigned long long tl_ = 0, tacc_[15] = {};                                \
+  if (threadIdx.x == 0) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tl_)); \
+  MARK(0)
+#define ACC(n)                                                               \
+  do {                                                                       \
+    if (threadIdx.x == 0) {                                                  \
+      unsigned long long t_;                                                 \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                 \
+      tacc_[n] += t_ - tl_;                                                  \
+      tl_ = t_;                                                              \
+    }                                                                        \
+  } while (0)
+#define TRACE_END()                                                          \
+  do {                                                                       \
+    if (threadIdx.x == 0) {                                                  \
+      const unsigned b_ =                                                    \
+          blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);    \
+      _Pragma("unroll") for (int n_ = 1; n_ < 15; ++n_)                     \
+        if (b_ < 8192) trace_buf[b_ * 16 + n_] = tacc_[n_];                  \
+    }                                                                        \
+    MARK(15);                                                                \
   } while (0)
 """
 
@@ -103,6 +132,51 @@ SSD_MARKS = [
 SSD_PHASES = ["state loads and the ring's first steps issued",
               "the S steps (the first waits for the loads)",
               "the state written"]
+# the chunked scan and the WKV sequence kernel loop over chunks / tiles:
+# slot 0 is the start, ACC slots sum each phase over the loop (in thread
+# 0's registers), slot 15 the end (a string is inserted as it is; an int n
+# as MARK(n))
+END = 15
+SSD_CHUNK_MARKS = [
+    ("TRACE_START();\n", "  const int g = lane >> 2, t4 = lane & 3;\n"),
+    ("ACC(1);\n", "  load_bc(cs, Cf, 0, min(Lc, S));\n  ssd_commit();\n"),
+    ("ACC(2);\n", "    __syncthreads();  // the chunk's inputs have landed\n"),
+    ("ACC(3);\n", "      wj[i] = expf(tot - cum[i]);\n    }\n"),
+    ("ACC(4);\n",
+     "    ssd_cluster_wait();  // every W tile of the chunk is published\n"),
+    ("ACC(5);\n", "    __syncthreads();       // every warp has read C and "
+     "the state\n"),
+    ("ACC(6);\n", "    __syncthreads();  // the state is updated; la, dtx and "
+     "B are free\n"),
+    ("TRACE_END();\n",
+     "      hout[(bh * hd + d0 + r) * N + q] = hs[r * ld + q];\n"),
+]
+SSD_CHUNK_PHASES = ["zeros, h0, the first chunk's copies issued",
+                    "the next copies issued and waited for",
+                    "cumulative sum (warp scan), exp(cum), exp(tot - cum)",
+                    "C.B^T tiles, decay, mask; cluster barrier (publish)",
+                    "y: intra-chunk and carried products",
+                    "the state pass"]
+WKV_MARKS = [
+    ("TRACE_START();\n", "  const int i0 = g * KPT;\n"),
+    ("ACC(1);\n", "      if (cn < n_tiles) stage(cn);        // the barrier "
+     "of tile c - 1\n"),
+    ("ACC(2);\n", '"n"(WKV_STAGES - 1)\n                   : "memory");\n'),
+    ("ACC(3);\n", "    __syncthreads();  // tile c has landed; the last "
+     "reduction is done\n"),
+    ("ACC(4);\n", "    __syncthreads();  // every partial of the tile is "
+     "written\n"),
+    ("ACC(5);\n", "      y[base + (size_t)(t0 + tt) * row + j0 + jj] = acc;"
+     "\n    }\n"),
+    ("TRACE_END();\n", "  for (int q = 0; q < KPT; ++q) sout[sbase + "
+     "(size_t)(i0 + q) * HD] = s[q];\n"),
+]
+WKV_PHASES = ["the next tile's copies issued (before tile 0: the first "
+              "tiles' copies and the state's loads)",
+              "waiting for this tile's copies",
+              "block barrier (the slowest thread's reduction)",
+              "the walk (state update, partials of y) and its barrier",
+              "the y reduction over key groups"]
 
 
 def instrument(text: str, marks) -> str:
@@ -110,7 +184,9 @@ def instrument(text: str, marks) -> str:
         if text.count(anchor) != 1:
             raise SystemExit(f"kernel_trace: anchor of mark {n} not found "
                              f"once: {anchor!r}")
-        if anchor.endswith("uint64_t bits"):   # mark before the anchor's tail
+        if isinstance(n, str):
+            text = text.replace(anchor, f"{anchor}  {n}")
+        elif anchor.endswith("uint64_t bits"):  # mark before the anchor's tail
             head = anchor[:-len("uint64_t bits")]
             text = text.replace(anchor, f"{head}MARK({n});\n  uint64_t bits")
         else:
@@ -149,7 +225,8 @@ def build_traced(name: str, source: Path, marks, header=None,
                          f"{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     for fn in ("paged_attention_launch", "tournament_keyed_launch",
-               "spec_verify_wm_launch", "ssd_step_launch"):
+               "spec_verify_wm_launch", "ssd_step_launch", "ssd_launch",
+               "wkv_launch"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = build.SIGNATURES[fn]
     return lib
@@ -168,6 +245,24 @@ def report(lib, n_blocks: int, phases) -> dict:
         start_quartiles_us=[float(np.quantile(start, x)) / 1e3
                             for x in (0.25, 0.5, 0.75, 1.0)],
         phases_us={p: float(np.median(t[:, i + 1] - t[:, i])) / 1e3
+                   for i, p in enumerate(phases)})
+
+
+def report_loop(lib, n_blocks: int, phases) -> dict:
+    """As ``report`` for a kernel traced with ACC: slot 0 the start, slots
+    1 .. len(phases) each phase summed over the loop, slot END the end."""
+    n = min(n_blocks, MAX_BLOCKS)
+    buf = np.zeros(n * 16, dtype=np.uint64)
+    if lib.trace_get(ctypes.c_void_p(buf.ctypes.data), n * 16):
+        raise SystemExit("kernel_trace: reading the marks failed")
+    t = buf.reshape(n, 16).astype(np.int64)
+    start = t[:, 0] - t[:, 0].min()
+    return dict(
+        span_us=float(t[:, END].max() - t[:, 0].min()) / 1e3,
+        block_life_us=float(np.median(t[:, END] - t[:, 0])) / 1e3,
+        start_quartiles_us=[float(np.quantile(start, x)) / 1e3
+                            for x in (0.25, 0.5, 0.75, 1.0)],
+        phases_us={p: float(np.median(t[:, i + 1])) / 1e3
                    for i, p in enumerate(phases)})
 
 
@@ -219,6 +314,7 @@ def main() -> int:
                               **report(tk, 8 * B, TOURNAMENT_PHASES))))
     trace_tail(cs, ops)
     trace_ssd(cs, ops)
+    trace_sequence(cs, ops)
     return 0
 
 
@@ -272,6 +368,48 @@ def trace_ssd(cs, ops):
         rep = report(sk, -(-H * hd // rows) * B, SSD_PHASES)
         rep["us_per_step"] = rep["phases_us"][SSD_PHASES[1]] / S
         print(json.dumps(dict(kernel="ssd_step", case=name, S=S, **rep)))
+
+
+
+def trace_sequence(cs, ops):
+    """The chunked SSD scan and the WKV sequence kernel at phase 2c's ssd
+    and wkv cases, float32 and bfloat16."""
+    import torch
+    libs = {"ssd": build_traced("ssd_traced", CSRC / "ssd.cu",
+                                SSD_CHUNK_MARKS,
+                                decl_after='#include "recurrent.cuh"\n'),
+            "wkv": build_traced("wkv_traced", CSRC / "wkv.cu", WKV_MARKS,
+                                decl_after='#include "recurrent.cuh"\n')}
+    for i, (name, kernel, shape) in enumerate(cs.REC_CASES):
+        if kernel not in libs:
+            continue
+        lib = libs[kernel]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cs.rec_inputs(kernel, shape, dtype, seed=i + 1)
+            bf16 = int(dtype == torch.bfloat16)
+            if kernel == "ssd":
+                want = ops.ssd(*args, chunk=cs.REC_CHUNK)
+                B, S, H, hd = args[1].shape
+                N = args[2].shape[-1]
+                extra = (B, S, H, hd, N, min(cs.REC_CHUNK, S), bf16)
+                n_blocks = -(-hd // 32) * H * B   # ssd.cu's SSD_DT rows
+                phases = SSD_CHUNK_PHASES
+            else:
+                want = ops.wkv(*args)
+                B, S, H, hd = args[0].shape
+                extra = (B, S, H, hd, bf16)
+                n_blocks = hd // 16 * H * B       # wkv.cu's WKV_JT
+                phases = WKV_PHASES
+            got = [torch.empty_like(w) for w in want]
+            launch = getattr(lib, kernel + "_launch")
+            rc = launch(*(ops._ptr(x) for x in (*args, *got)), *extra,
+                        ops._stream(args[0]))
+            torch.cuda.synchronize()
+            if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"kernel_trace: traced {name} differs")
+            print(json.dumps(dict(kernel=kernel, case=name,
+                                  dtype=str(dtype)[6:], S=S,
+                                  **report_loop(lib, n_blocks, phases))))
 
 
 if __name__ == "__main__":

@@ -18,9 +18,10 @@ order may round a score, a probability or the output one ulp the other
 way).  The recurrent kernels (wkv, wkv_step, ssd, ssd_step and its
 per-timestep scan): every output, y and the state, within ref.wkv_tol /
 ref.ssd_tol, chip_smoke.py's bound (twice γ_D times the output's
-envelope, the plain version run on absolute values); the scan equal to a
-loop of steps, and a row of the fused tail's tournament alone equal to it
-in a batch, bit for bit."""
+envelope, the plain version run on absolute values); the WKV state equal
+to ref.wkv_ref's, the scan equal to a loop of steps, and a row of ssd, wkv
+and the fused tail's tournament alone equal to it in a batch, bit for
+bit."""
 import numpy as np
 import pytest
 import torch
@@ -413,6 +414,93 @@ def test_ssd_step_state_off_the_16_byte_grid(cuda):
     y1, s1 = ops.ssd_step(la, dtx, Bf, Cf, h0)
     y2, s2 = ops.ssd_step(la, dtx, Bf, Cf, odd)
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def _within(got, want, tols):
+    for out, w, tol in zip(got, want, tols):
+        assert out.dtype == torch.float32 and out.shape == w.shape
+        assert bool(((out - w).abs() <= tol).all()), \
+            float((out - w).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,N", [(64, 64), (16, 8), (32, 16), (5, 6)])
+@pytest.mark.parametrize("S,chunk", [(129, 128), (300, 128), (128, 128),
+                                     (37, 16)])
+def test_ssd_chunks_and_widths(cuda, S, chunk, hd, N, dtype):
+    """The chunked scan over several chunks with a ragged tail (S = 129,
+    300 at chunk 128; 37 at 16), over exactly one chunk (S = 128), and at
+    widths off the tensor-core tiles (hd=5, N=6 pad both; hd=16, N=8 and
+    hd=32, N=16 fill them), one launch, within ref.ssd_tol."""
+    args = _recurrent_inputs("ssd", (2, S, 3, hd, N), dtype, cuda,
+                             seed=S + hd + N)
+    ops.reset_launches()
+    got = ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd"] == 1 and sum(ops.LAUNCHES.values()) == 1
+    _within(got, ref.ssd_chunked_ref(*args, chunk),
+            ref.ssd_tol(*args, chunk=chunk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 300])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv_state_bit_for_bit(cuda, hd, S, dtype):
+    """Every head size the kernel takes, S below, at and past one tile of
+    16 timesteps and a long prompt: the state equals ref.wkv_ref's bit for
+    bit (the same two roundings a timestep), y within ref.wkv_tol."""
+    args = _recurrent_inputs("wkv", (2, S, 3, hd), dtype, cuda,
+                             seed=S + hd)
+    ops.reset_launches()
+    y, s = ops.wkv(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wkv"] == 1 and sum(ops.LAUNCHES.values()) == 1
+    want = ref.wkv_ref(*args)
+    assert torch.equal(s, want[1])
+    _within((y, s), want, ref.wkv_tol(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,shape", [
+    ("ssd", (4, 200, 3, 64, 64)), ("ssd", (4, 37, 2, 5, 6)),
+    ("wkv", (4, 37, 3, 64)), ("wkv", (4, 20, 2, 128))])
+def test_recurrent_row_alone_equals_batched(cuda, kernel, shape, dtype):
+    """Each row of a B=4 batch run alone gives, bit for bit, what it gives
+    in the batch (y and the state): no sum's order depends on B."""
+    fn = {"ssd": lambda *a: ops.ssd(*a, chunk=128), "wkv": ops.wkv}[kernel]
+    args = _recurrent_inputs(kernel, shape, dtype, cuda, seed=sum(shape))
+    batch = fn(*args)
+    # u is per head (no batch axis); every other input has one
+    per_row = [i for i, a in enumerate(args)
+               if not (kernel == "wkv" and i == 4)]
+    for b in range(shape[0]):
+        row = [a[b:b + 1].clone() if i in per_row else a
+               for i, a in enumerate(args)]
+        for alone, batched in zip(fn(*row), batch):
+            assert torch.equal(alone, batched[b:b + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,shape", [("ssd", (2, 150, 3, 64, 64)),
+                                          ("wkv", (2, 21, 3, 64)),
+                                          ("wkv", (2, 53, 2, 128))])
+def test_recurrent_inputs_off_the_16_byte_grid(cuda, kernel, shape, dtype):
+    """Inputs whose bases are one element off the 16-byte grid (copied
+    element by element; a bfloat16 one is not even on the 4-byte grid)
+    give what aligned ones give, bit for bit.  S = 53 is four WKV tiles:
+    a tile is fetched while the one before the next is walked."""
+    fn = {"ssd": lambda *a: ops.ssd(*a, chunk=128), "wkv": ops.wkv}[kernel]
+    args = _recurrent_inputs(kernel, shape, dtype, cuda, seed=5)
+
+    def odd(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:]
+        return o.view(t.shape).copy_(t)
+    for got, want in zip(fn(*(odd(a) for a in args)), fn(*args)):
+        assert torch.equal(got, want)
 
 
 TOURNAMENT_TAIL = FusedTail(kind="tournament", m=30, stat_dim=30)
