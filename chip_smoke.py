@@ -8,7 +8,10 @@ Phases, each fatal on failure, in this order:
   2. every kernel against its plain PyTorch version on the card, at the
      serving shapes (B=4, K=4, m=30, V=32000 and V=256128), with the
      race, the tournament and the degenerate tail, mixed seen / live rows
-     and mixed keys; the keyed tournament also at B=8 (two emulated
+     and mixed keys (the race also at B=8), each row alone equal to the
+     same row in the batch; the Gumbel race also at B=1 and 8 (every
+     launch shape, each row alone equal to its batch's); the keyed
+     tournament also at B=8 (two emulated
      faults at B=4, V=32000: m − 1 rounds, another context); the unkeyed
      tournament at B=4 and V=32000, (8, 4096),
      the Monte-Carlo shape (16384, 32000) and a Fig. 1 chunk (20000, 10),
@@ -34,7 +37,10 @@ Phases, each fatal on failure, in this order:
      rounding bound, which must also see three emulated faults, the WKV
      state bit for bit, and each row of the wkv and ssd batches alone
      equal to the batch's; times of kernel, plain version and bound (the
-     chunked scan's at the TF32 tensor-core rate it runs at);
+     chunked scan's at the TF32 tensor-core rate its tiled kernel runs
+     at); the chunked scan also at two (hd, N, chunk) whose chunk only
+     its scalar kernel holds (ops.ssd_kernel_for), its launches counted
+     apart;
   3. the dense Algorithm 1 slice at full width: LLAMA_7B target and
      LLAMA_68M draft in bf16 (random weights from a seed), B=4, prompt 16,
      48 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
@@ -214,7 +220,8 @@ def verify_inputs(B, K, V, seed, serving=False):
 def tail_cases():
     """(name, B, V, tail, serving) of phase 2's fused-tail checks: the race,
     the tournament and the degenerate tail at B=4 and both vocabularies
-    (mixed seen / live rows), and the tournament at the serving shape."""
+    (mixed seen / live rows), and at the serving shape the race (mixed
+    seen / live rows) and the tournament (every row live, none seen)."""
     from repro_torch.core.watermark.base import FusedTail
     cases = []
     for V in (32000, 256128):
@@ -225,6 +232,7 @@ def tail_cases():
                 4, V, FusedTail(kind="tournament", m=30, stat_dim=30,
                                 degenerate=degen), False))
     B, V = TAIL_SERVING_SHAPE
+    cases.append((f"spec_verify_wm race B={B} V={V}", B, V, None, False))
     cases.append((f"spec_verify_wm_tournament serving B={B} V={V}", B, V,
                   FusedTail(kind="tournament", m=30, stat_dim=30), True))
     return cases
@@ -239,8 +247,8 @@ def tail_inputs(B, V, tail, serving):
 def check_spec_verify(name, B, V, tail, serving, streams, record):
     """ops.spec_verify_wm against its plain version: n_acc and the prefix
     bitwise, the token outside margin rows (counted), its U or g-bits
-    bitwise; at ``serving`` also every row alone equal to the same row in
-    the batch, bit for bit."""
+    bitwise, and every row alone equal to the same row in the batch, bit
+    for bit."""
     import torch
     from repro_torch.kernels import ops, ref
     K = 4
@@ -284,12 +292,11 @@ def check_spec_verify(name, B, V, tail, serving, streams, record):
         err = 0.0
     check(bool((tok_k[~live] == 0).all() and (n_acc_k[~live] == 0).all()),
           f"{name}: dead rows not zero")
-    if serving:
-        for b in range(B):
-            alone = ops.spec_verify_wm(*(x[b:b + 1] for x in args),
-                                       streams=streams, tail=tail)
-            check(all(torch.equal(x[0], y[b]) for x, y in zip(alone, kn)),
-                  f"{name}: row {b} alone differs from the batch")
+    for b in range(B):
+        alone = ops.spec_verify_wm(*(x[b:b + 1] for x in args),
+                                   streams=streams, tail=tail)
+        check(all(torch.equal(x[0], y[b]) for x, y in zip(alone, kn)),
+              f"{name}: row {b} alone differs from the batch")
     times = timings(
         "spec_verify_wm_tournament_kernel" if kind == "tournament" else
         "spec_verify_wm_kernel",
@@ -322,16 +329,40 @@ def check_spec_verify(name, B, V, tail, serving, streams, record):
                        bound_ms=bnd, bound_by=by))
 
 
-def check_gumbel_argmax(B, V, record):
-    """ops.gumbel_argmax against its plain version: tokens equal outside
-    margin rows (counted), U[token] bitwise, an all-zero row gives 0."""
+def gumbel_inputs(B, V):
+    """Rows (B, V) with a spread of peaks, row 3 all zero where B > 3
+    (token 0, U[0]), and seed words, the same in every checkout."""
     import torch
-    from repro_torch.kernels import ops, ref
     g = torch.Generator(device=DEV).manual_seed(V if B == 4 else B + V)
     probs = torch.softmax(torch.randn((B, V), generator=g,
                                       device=DEV) * 3, -1)
-    probs[3] = 0.0                  # an all-zero row: token 0, U[0]
+    if B > 3:
+        probs[3] = 0.0
     seeds = torch.randint(0, 2**32, (B,), generator=g, device=DEV)
+    return probs, seeds
+
+
+# rows of a Monte-Carlo batch checked alone against the batch (all rows
+# of a serving batch are)
+ALONE_ROWS = 8
+
+
+def alone_rows(B):
+    """The rows of a batch of B that are run alone: every row up to
+    ALONE_ROWS, else ALONE_ROWS spread over the batch, the last included."""
+    if B <= ALONE_ROWS:
+        return list(range(B))
+    return [b * (B - 1) // (ALONE_ROWS - 1) for b in range(ALONE_ROWS)]
+
+
+def check_gumbel_argmax(B, V, record):
+    """ops.gumbel_argmax against its plain version: tokens equal outside
+    margin rows (counted), U[token] bitwise, an all-zero row gives 0, and
+    rows alone (``alone_rows``; a row alone takes another launch shape
+    than a large batch) equal to the batch's, token and U bit for bit."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    probs, seeds = gumbel_inputs(B, V)
     tk, uk = ops.gumbel_argmax(probs, seeds)
     tr, ur = ref.gumbel_argmax_ref(probs, seeds)
     scores, _ = ref.race_scores(probs, seeds)
@@ -342,15 +373,20 @@ def check_gumbel_argmax(B, V, record):
     check(bool((same | in_margin).all()),
           f"{name}: {int((~same & ~in_margin).sum())} tokens differ "
           f"outside margin rows")
-    check(int(tk[3]) == 0, "gumbel_argmax: all-zero row must give token 0")
+    check(B <= 3 or int(tk[3]) == 0,
+          "gumbel_argmax: all-zero row must give token 0")
     err = float((uk - ur)[same].abs().max())
     check(err == 0.0, f"{name}: U differs by {err}")
-    times = timings("gumbel_argmax_kernel",
+    for b in alone_rows(B):
+        ta, ua = ops.gumbel_argmax(probs[b:b + 1], seeds[b:b + 1])
+        check(torch.equal(ta[0], tk[b]) and torch.equal(ua[0], uk[b]),
+              f"{name}: row {b} alone differs from the batch")
+    times = timings("gumbel_argmax",
                     lambda: ops.gumbel_argmax(probs, seeds),
                     lambda: ref.gumbel_argmax_ref(probs, seeds))
     bnd, by = bound_ms(4 * B * V + 8 * B + 12 * B, B * V * OPS_RACE)
     record.append(dict(case=name, margin_rows=int(in_margin.sum()),
-                       max_abs_err=err,
+                       max_abs_err=err, split=ops.race_split(B, V),
                        **times, bound_ms=bnd, bound_by=by))
 
 
@@ -422,13 +458,14 @@ def check_tournament(B, V, record):
 # of Def. 3.1 strength (16384 contexts at V=32000) and one chunk of the
 # Fig. 1 curves (20000 contexts at V=10)
 TOURNAMENT_SHAPES = ((4, 32000), (8, 4096), (16384, 32000), (20000, 10))
-# the Gumbel race's: the served rows (B=4 at both vocabularies) and the
-# same two Monte-Carlo shapes (gumbel's modified_dist)
-GUMBEL_ARGMAX_SHAPES = ((4, 32000), (4, 256128), (16384, 32000),
-                        (20000, 10))
+# the Gumbel race's: the served rows (B=1, 4 and 8 at V=32000, B=4 at
+# V=256128) and the same two Monte-Carlo shapes (gumbel's modified_dist)
+GUMBEL_ARGMAX_SHAPES = ((4, 32000), (1, 32000), (8, 32000), (4, 256128),
+                        (16384, 32000), (20000, 10))
 SPEC_VERIFY_SHAPES = ((4, 4, 32000), (8, 4, 4096))
-# the fused tail's tournament at the dense-draft serving step: 8 slots,
-# every one live and drawing a fresh token (K=4, m=30)
+# the fused tail at the dense-draft serving step's 8 slots (K=4, m=30):
+# the tournament with every slot live and drawing a fresh token, the race
+# with mixed seen and live rows
 TAIL_SERVING_SHAPE = (8, 32000)
 
 
@@ -595,9 +632,9 @@ def phase_slice(target, draft):
         r1 = E.generate(target, draft, scfg, prompts, n_tokens=n, key=keys)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        for k, v in ops.LAUNCHES.items():
-            counts[k] += v
         launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            counts[k] += v
         m = INF_CHECK_TOKENS if wm == "synthid-inf" else n
         r2 = E.generate(target, draft, scfg, prompts, n_tokens=m, key=keys)
         r_off = E.generate(target, draft,
@@ -937,7 +974,10 @@ def phase_paged_kernel():
 # chunk, a prompt with a ragged tail and a batch; zamba2-1.2b's decode
 # step at 4 slots and prompts longer than the chunk (one exact multiple,
 # one ragged) and a batch, at ssm.chunk 128; the WKV kernels' widest
-# instantiation (head size 128, the same width of heads)
+# instantiation (head size 128, the same width of heads); and the chunked
+# scan at two (hd, N, chunk) whose chunk the tiled kernel's layout cannot
+# hold and its scalar kernel's can (a key "chunk" overrides REC_CHUNK):
+# one chunk, and three with a ragged tail
 REC_CASES = [
     ("wkv_step rwkv6-3b", "wkv_step", dict(B=8, H=40, hd=64)),
     ("wkv admission chunk", "wkv", dict(B=1, S=32, H=40, hd=64)),
@@ -953,6 +993,10 @@ REC_CASES = [
     ("ssd_scan prompt 64", "ssd_scan", dict(B=1, S=64, H=64, hd=64, N=64)),
     ("ssd_scan prompt 128", "ssd_scan",
      dict(B=1, S=128, H=64, hd=64, N=64)),
+    ("ssd_scalar hd16 N348", "ssd",
+     dict(B=2, S=67, H=4, hd=16, N=348, chunk=67)),
+    ("ssd_scalar hd32 N250", "ssd",
+     dict(B=2, S=200, H=4, hd=32, N=250, chunk=81)),
 ]
 REC_CHUNK = 128
 # the launch count and the device kernel of each case's wrapper: the
@@ -995,9 +1039,9 @@ def rec_inputs(kernel, shape, dtype, seed):
         + (h0.to(DEV),)
 
 
-def rec_functions(kernel):
+def rec_functions(kernel, chunk=REC_CHUNK):
     """(the kernel's wrapper, its plain version, its tolerance) as
-    functions of the inputs."""
+    functions of the inputs (``ssd`` in chunks of ``chunk`` tokens)."""
     import functools
     from repro_torch.kernels import ops, ref
     if kernel == "wkv_step":
@@ -1009,9 +1053,9 @@ def rec_functions(kernel):
     if kernel == "ssd_scan":
         return (ops.ssd_scan, ref.ssd_ref,
                 functools.partial(ref.ssd_tol, chunk=0))
-    return (functools.partial(ops.ssd, chunk=REC_CHUNK),
-            functools.partial(ref.ssd_chunked_ref, chunk=REC_CHUNK),
-            functools.partial(ref.ssd_tol, chunk=REC_CHUNK))
+    return (functools.partial(ops.ssd, chunk=chunk),
+            functools.partial(ref.ssd_chunked_ref, chunk=chunk),
+            functools.partial(ref.ssd_tol, chunk=chunk))
 
 
 def rec_faults(kernel, args):
@@ -1041,7 +1085,7 @@ def rec_faults(kernel, args):
             "b_c_swapped": (la, dtx, Cf, Bf, h0)}
 
 
-def ssd_tc_ops(shape, chunk=REC_CHUNK, padded=False):
+def ssd_tc_ops(shape, padded=False):
     """Float operations of the chunked scan's products on tensor cores,
     three TF32 products a float32 multiply-add.  By default what the
     chunked algorithm needs at the real token count: per (b, chunk) of n
@@ -1052,7 +1096,7 @@ def ssd_tc_ops(shape, chunk=REC_CHUNK, padded=False):
     up to 16 rows (the tail too), N up to 8, hd to 8 for y and to 16 for
     the state, and the R (R + 1) 16x8 tiles of C.B^T once per (b, h)."""
     B, S, H, hd, N = (shape[k] for k in ("B", "S", "H", "hd", "N"))
-    Lc = min(chunk, S)
+    Lc = min(shape.get("chunk", REC_CHUNK), S)
     if padded:
         Lp, Np = -(-Lc // 16) * 16, -(-N // 8) * 8
         hd8, hd16 = -(-hd // 8) * 8, -(-hd // 16) * 16
@@ -1079,8 +1123,10 @@ def rec_bound(kernel, shape, el):
     operations the chunked algorithm needs at the real token count
     (``ssd_tc_ops``) at the TF32 rate, and the float32 figure stays beside
     it as ``bound_fp32_ms``; ``kernel_work_ms`` is the time of the products
-    the kernel runs, padded tiles and per-head C.B^T included, at that
-    rate (not a bound).  Returns the record's bound keys."""
+    the tiled kernel runs, padded tiles and per-head C.B^T included, at
+    that rate (not a bound).  The scalar kernel computes the same function
+    on the same inputs, so its bound is the same.  Returns the record's
+    bound keys."""
     B = shape["B"]
     S = shape.get("S", 1)
     if kernel.startswith("wkv"):
@@ -1120,8 +1166,9 @@ def rows_alone_equal(fn, args, kernel, got):
 def phase_recurrent_kernels():
     """wkv_step, wkv, ssd_step (the decode step and the per-timestep scan,
     one launch a call) and ssd against their plain versions at the serving
-    shapes of rwkv6-3b and zamba2-1.2b, with float32 and bfloat16
-    inputs.  Every output (y and the state) must lie within its tolerance
+    shapes of rwkv6-3b and zamba2-1.2b, and ssd at two shapes only its
+    scalar kernel holds, with float32 and bfloat16 inputs.  Every output
+    (y and the state) must lie within its tolerance
     (ref.wkv_tol / ref.ssd_tol: twice γ_D times the output's envelope, the
     plain version run on absolute values), and each of three emulated
     faults must exceed it by FAULT_FACTOR.  The WKV kernels' state must
@@ -1129,22 +1176,39 @@ def phase_recurrent_kernels():
     and ssd each row alone must give what it gives in the batch.  The
     kernel's, the plain version's and the bound's times; no single
     PyTorch call computes these recurrences, so there is no library
-    yardstick."""
+    yardstick.  Each ssd launch must run the kernel ops.ssd_kernel_for
+    names (the tiled one wherever its layout fits); the records of the
+    scalar kernel's cases carry kernel "ssd_scalar".  Returns the records
+    and the launch counts of the scalar kernel's cases' checked calls
+    (each counted from 0 just before the call)."""
     import torch
     from repro_torch.kernels import ops
     record = []
+    scalar_counts = {}
     for name, kernel, shape in REC_CASES:
-        fn, plain, tolf = rec_functions(kernel)
+        fn, plain, tolf = rec_functions(
+            kernel, shape.get("chunk", REC_CHUNK))
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{name} {str(dtype)[6:]}"
             args = rec_inputs(kernel, shape, dtype, seed=len(record) + 1)
             launched = REC_KERNEL.get(kernel, kernel)
+            which = None
+            if kernel == "ssd":
+                which = ops.ssd_kernel_for(
+                    shape["hd"], shape["N"],
+                    min(shape.get("chunk", REC_CHUNK), shape["S"]))
+            # the scalar chunked kernel counts under ssd and ssd_scalar
+            want_launches = {launched: 1, **({"ssd_scalar": 1}
+                                             if which == "scalar" else {})}
             ops.reset_launches()
             got = fn(*args)
             torch.cuda.synchronize()
-            check(ops.LAUNCHES[launched] == 1 and sum(ops.LAUNCHES.values())
-                  == 1, f"{tag}: launches {ops.LAUNCHES}, not one "
-                  f"{launched}")
+            ran = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(ran == want_launches, f"{tag}: launches {ran}, not "
+                  f"{want_launches}")
+            if which == "scalar":
+                for k, v in ops.LAUNCHES.items():
+                    scalar_counts[k] = scalar_counts.get(k, 0) + v
             want = plain(*args)
             tols = tolf(*args)
             ratio, errs = 0.0, []
@@ -1177,7 +1241,9 @@ def phase_recurrent_kernels():
             times = timings(f"{launched}_kernel", lambda: fn(*args),
                             lambda: plain(*args))
             bound = rec_bound(kernel, shape, torch.finfo(dtype).bits // 8)
-            record.append(dict(case=tag, kernel=launched, max_abs_err=err,
+            record.append(dict(case=tag, kernel="ssd_scalar"
+                               if which == "scalar" else launched,
+                               max_abs_err=err,
                                err_over_tol=ratio,
                                y_err=errs[0], state_err=errs[1],
                                rows_alone_equal=alone,
@@ -1185,7 +1251,9 @@ def phase_recurrent_kernels():
                                **times, library_ms=None, **bound))
     for r in record:
         print("kernel-check " + json.dumps(r))
-    return record
+    check(scalar_counts.get("ssd_scalar", 0) > 0,
+          "phase 2c: the scalar ssd kernel never ran")
+    return record, scalar_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1646,8 @@ def phase_recurrent(target):
     for path, kernels in need.items():
         check(all(by_path[path][k] > 0 for k in kernels),
               f"{path}: a recurrent kernel never launched: {by_path[path]}")
+        check(by_path[path]["ssd_scalar"] == 0,
+              f"{path}: a model's chunks must run the tiled ssd kernel")
     return by_path, results
 
 
@@ -2188,6 +2258,10 @@ KERNELS = [
      "src/repro/kernels/wkv.py:112", "wkv_step rwkv6-3b bfloat16"),
     ("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
      "src/repro/kernels/ssd.py:64", "ssd batch float32"),
+    # the chunked scan's scalar kernel, for the chunks ssd.cu cannot hold
+    # (ops.LAUNCHES counts it under ssd too); no model path has such a chunk
+    ("ssd_scalar", "src/repro_torch/kernels/csrc/ssd_scalar.cu",
+     "src/repro/kernels/ssd.py:64", "ssd_scalar hd32 N250 float32"),
     ("ssd_step", "src/repro_torch/kernels/csrc/ssd_step.cu",
      "src/repro/kernels/ssd.py:121", "ssd_step zamba2-1.2b float32"),
     ("tournament", "src/repro_torch/kernels/csrc/tournament.cu",
@@ -2237,7 +2311,9 @@ def main() -> int:
 
     record = timed("2 kernels", phase_kernels)
     record += timed("2b paged kernel", phase_paged_kernel)
-    record += timed("2c recurrent kernels", phase_recurrent_kernels)
+    rec_record, scalar_counts = timed("2c recurrent kernels",
+                                      phase_recurrent_kernels)
+    record += rec_record
     target, draft = make_pair()
     counts, slice_results = timed("3 generate", phase_slice, target, draft)
     serve_counts, serve_results = timed("3b serve_requests", phase_serve,
@@ -2258,14 +2334,17 @@ def main() -> int:
 
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
-             **rec_counts, **measure_counts}
+             **rec_counts, **measure_counts,
+             "ssd scalar-kernel shapes (phase 2c)": scalar_counts}
     kernels = []
     for name, source, replaces, case in KERNELS:
         r = by_case[case]
         prefix = case.split()[0]
         cases = [x for x in record
                  if x.get("kernel", x["case"].split()[0]) == prefix]
-        by_path = {path: c[name] for path, c in paths.items()}
+        # ssd counts both chunked-scan kernels; its entry is the tiled one's
+        by_path = {path: c[name] - (c["ssd_scalar"] if name == "ssd" else 0)
+                   for path, c in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the paged-attention, keyed-tournament, fused-tail tournament, SSD
-step / scan, chunked SSD and WKV kernels of two checkouts on one CUDA
-card.
+"""Time the paged-attention, keyed-tournament, fused-tail (race and
+tournament), Gumbel race, SSD step / scan, chunked SSD and WKV kernels of
+two checkouts on one CUDA card.
 
     python3 scripts/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT
 
@@ -14,10 +14,15 @@ checkout's kernel on NEW's inputs (the same seeds, so every case sees the
 same tensors in both checkouts; "refused" where the checkout's wrapper
 raises on them).  Then, on NEW's inputs through each checkout's wrappers:
 the fused tail at NEW's phase 2 cases (``tail_cases``: the race and the
-tournament, degenerate or not, at B=4 and V=32000 and 256128, and the
-tournament's B=8 serving case), the median of its launches; and NEW's
+tournament, degenerate or not, at B=4 and V=32000 and 256128, and the race
+and the tournament at the B=8 serving shape), the median of its launches;
+the Gumbel race at NEW's ``GUMBEL_ARGMAX_SHAPES`` (``gumbel_inputs``), the
+median of its launches, and, where the checkout's wrapper chooses a launch
+shape (``ops.race_split``), also each serving row count at both
+vocabularies with a row over 8 and over 16 blocks (a non-portable
+cluster) through the library's entry ("... split C"); and NEW's
 phase 2c cases of the SSD and WKV sequence kernels and the SSD step: the
-chunked scan (``ssd``, at NEW's ``REC_CHUNK``), ``wkv`` and the decode
+chunked scan (``ssd``, at each case's chunk), ``wkv`` and the decode
 step (``ssd_step``), the median of their launches, and the per-timestep
 scan (``ssd_scan``: the device time of every kernel of one call, however
 many launches it makes, and, as "... wall", the median wall time of one
@@ -107,6 +112,29 @@ for name, B, V, tail, serving in new.tail_cases():
     ms[name] = chip_smoke.device_ms(
         lambda: ops.spec_verify_wm(*args, tail=tail),
         kernel="spec_verify_wm")
+for B, V in new.GUMBEL_ARGMAX_SHAPES:
+    probs, seeds = new.gumbel_inputs(B, V)
+    ms[f"gumbel_argmax B={B} V={V}"] = chip_smoke.device_ms(
+        lambda: ops.gumbel_argmax(probs, seeds), kernel="gumbel_argmax")
+if hasattr(ops, "race_split"):
+    lib = build.load()
+    for B in (1, 4, 8):
+        for V in (32000, 256128):
+            probs, seeds = new.gumbel_inputs(B, V)
+            tok = torch.empty(B, dtype=torch.int64, device="cuda")
+            u = torch.empty(B, device="cuda")
+            for split in (8, 16):
+                def race():
+                    rc = lib.gumbel_argmax_launch(
+                        ops._ptr(probs), ops._ptr(seeds), B, V, split,
+                        ops._ptr(tok), ops._ptr(u), ops._stream(probs))
+                    assert rc == 0, f"split {split}: CUDA error {rc}"
+                race()
+                want = ops.gumbel_argmax(probs, seeds)
+                assert torch.equal(tok, want[0]) and torch.equal(
+                    u, want[1]), f"split {split} differs"
+                ms[f"gumbel_argmax B={B} V={V} split {split}"] = \
+                    chip_smoke.device_ms(race, kernel="gumbel_argmax")
 for i, (name, kernel, shape) in enumerate(new.REC_CASES):
     if kernel not in ("ssd_step", "ssd_scan", "ssd", "wkv"):
         continue
@@ -115,7 +143,8 @@ for i, (name, kernel, shape) in enumerate(new.REC_CASES):
         args = new.rec_inputs(kernel, shape, dtype, seed=i + 1)
         fn = getattr(ops, kernel)
         if kernel == "ssd":
-            fn = functools.partial(fn, chunk=new.REC_CHUNK)
+            fn = functools.partial(fn, chunk=shape.get("chunk",
+                                                       new.REC_CHUNK))
         try:
             fn(*args)
         except ValueError:

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where a block's time goes in the paged-attention, keyed-tournament,
-fused-tail tournament, SSD step, chunked SSD and WKV kernels, on one CUDA
-card.
+fused-tail (tournament and race), Gumbel race, SSD step, chunked SSD and
+WKV kernels, on one CUDA card.
 
     python3 scripts/kernel_trace.py
 
 Builds a traced copy of ``csrc/paged_attention.cu``, of
 ``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``), of
-``csrc/spec_verify_wm.cu``, of ``csrc/ssd_step.cu``, of ``csrc/ssd.cu``
-and of ``csrc/wkv.cu`` into ``build/kernel_trace/``: thread 0 of every
-block reads ``%globaltimer`` at the marks below.  Runs them at
+``csrc/spec_verify_wm.cu`` (both kernels), of ``csrc/gumbel_argmax.cu``
+(both kernels), of ``csrc/ssd_step.cu``, of ``csrc/ssd.cu`` and of
+``csrc/wkv.cu`` into ``build/kernel_trace/``: thread 0 of every block
+reads ``%globaltimer`` at the marks below.  Runs them at
 ``chip_smoke.PAGED_CASES`` (bf16), ``chip_smoke.TOURNAMENT_KEYED_SHAPES``,
-the tail's tournament at the serving step's inputs (every row live, no
-slot seen) at those shapes, ``chip_smoke.REC_CASES``' SSD step and scan
-cases (float32) and its ``ssd`` and ``wkv`` cases (float32 and bfloat16),
+the tail's tournament and race at the serving step's inputs (every row
+live, no slot seen) at those shapes, the Gumbel race at
+``chip_smoke.GUMBEL_ARGMAX_SHAPES`` in the launch shape the wrapper picks
+(``ops.race_split``), ``chip_smoke.REC_CASES``' SSD step and scan
+cases (float32) and its ``ssd`` and ``wkv`` cases that the tiled kernel
+takes (float32 and bfloat16),
 and prints one JSON line per case: the span of the launch, the median
 life of a block, the quartiles of the blocks' start times (how many
 waves), and the median time between consecutive marks; for ``ssd`` and
@@ -122,6 +126,33 @@ TAIL_MARKS = [
 TAIL_PHASES = ["accept test, seeds",
                "r over the slice, its sum over the cluster, normalise",
                "the m rounds", "the draw (race at member 0)"]
+RACE_TAIL_MARKS = [
+    (0, "  const int C = TAIL_CLUSTER, rank = blockIdx.x % C, b = blockIdx.x "
+        "/ C;\n"),
+    (1, "  const uint32_t seed = t.seen ? t.pl_s : t.wm_s;\n"),
+    (2, "  race_slice(t.ps, t.qs, lo, hi, seed, best, bi);\n"),
+    (3, "  bi = cluster_merge(best, bi, s_best, s_idx);\n"),
+]
+RACE_TAIL_PHASES = ["accept test, seeds",
+                    "the slice: loads, hashes, logs, divisions",
+                    "block argmax, cluster barrier's wait, merge at member 0"]
+# the Gumbel race's two kernels (marks 0-2 in each; one runs a launch)
+GUMBEL_MARKS = [
+    (0, "  const int lane = (int)(g & (width - 1));\n"),
+    (1, "      arg_better(race_score(row[w], seed, (uint32_t)w), w, best, "
+        "bi);\n  }\n"),
+    (2, "               __shfl_xor_sync(0xffffffffu, bi, o), best, bi);\n"),
+    (0, "  const int b = blockIdx.x / C, rank = blockIdx.x % C;\n"),
+    (1, "  race_slice(probs + (size_t)b * V, nullptr, lo, hi, seed, best, "
+        "bi);\n"),
+    (2, "    bi = cluster_merge(best, bi, s_best, s_idx);\n  }\n"),
+]
+GUMBEL_PHASES = {0: ["the segment's entries", "the shuffle argmax"],
+                 1: ["the slice: loads, hashes, logs, divisions",
+                     "block argmax (the row is the block's)"]}
+GUMBEL_CLUSTER_PHASES = ["the slice: loads, hashes, logs, divisions",
+                         "block argmax, cluster barrier's wait, merge at "
+                         "member 0"]
 SSD_MARKS = [
     (0, "  const size_t bR = (size_t)b * HD;\n"),
     (1, "  for (int t = 0; t < SSD_STAGES - 1; ++t) issue(t);\n"),
@@ -225,8 +256,8 @@ def build_traced(name: str, source: Path, marks, header=None,
                          f"{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     for fn in ("paged_attention_launch", "tournament_keyed_launch",
-               "spec_verify_wm_launch", "ssd_step_launch", "ssd_launch",
-               "wkv_launch"):
+               "spec_verify_wm_launch", "gumbel_argmax_launch",
+               "ssd_step_launch", "ssd_launch", "wkv_launch"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = build.SIGNATURES[fn]
     return lib
@@ -313,34 +344,73 @@ def main() -> int:
         print(json.dumps(dict(kernel="tournament_keyed", case=f"B={B} V={V}",
                               **report(tk, 8 * B, TOURNAMENT_PHASES))))
     trace_tail(cs, ops)
+    trace_gumbel(cs, ops)
     trace_ssd(cs, ops)
     trace_sequence(cs, ops)
     return 0
 
 
 def trace_tail(cs, ops):
-    """The fused tail's tournament at the serving step's inputs."""
+    """The fused tail's tournament and race at the serving step's inputs
+    (every row live, no slot seen)."""
     import torch
     from repro_torch.core.watermark.base import FusedTail
     sv = build_traced("spec_verify_wm_traced", CSRC / "spec_verify_wm.cu",
-                      TAIL_MARKS, decl_after='#include "cluster_tournament.cuh"\n')
-    tail = FusedTail(kind="tournament", m=30, stat_dim=30)
-    for B, V in cs.TOURNAMENT_KEYED_SHAPES:
-        args = cs.tail_inputs(B, V, tail, serving=True)
-        want = ops.spec_verify_wm(*args, tail=tail)
+                      TAIL_MARKS + RACE_TAIL_MARKS,
+                      decl_after='#include "cluster_tournament.cuh"\n')
+    tour = FusedTail(kind="tournament", m=30, stat_dim=30)
+    for tail, kernel, phases in (
+            (tour, "spec_verify_wm_tournament", TAIL_PHASES),
+            (None, "spec_verify_wm", RACE_TAIL_PHASES)):
+        m = tail.m if tail else 0
+        for B, V in cs.TOURNAMENT_KEYED_SHAPES:
+            args = cs.tail_inputs(B, V, tail, serving=True)
+            want = ops.spec_verify_wm(*args, tail=tail)
+            got = [torch.empty_like(w) for w in want]
+            p, q, toks, u, keys, ctx, seen, live = args
+            rc = sv.spec_verify_wm_launch(
+                *(ops._ptr(x) for x in (p, q, toks, u, keys, ctx, seen,
+                                        live)),
+                ops._ptr(None), *(ops._ptr(x) for x in got), B, 4, V, m,
+                int(tail is not None), 0, m or 1, *ops.DEFAULT_STREAMS,
+                ops._stream(p))
+            torch.cuda.synchronize()
+            if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"kernel_trace: traced {kernel} B={B} "
+                                 f"V={V} differs")
+            print(json.dumps(dict(kernel=kernel, case=f"B={B} V={V}",
+                                  **report(sv, 8 * B, phases))))
+
+
+def trace_gumbel(cs, ops):
+    """The Gumbel race at every phase 2 shape, in the wrapper's launch
+    shape."""
+    import torch
+    ga = build_traced("gumbel_argmax_traced", CSRC / "gumbel_argmax.cu",
+                      GUMBEL_MARKS,
+                      decl_after='#include "cluster_tournament.cuh"\n')
+    for B, V in cs.GUMBEL_ARGMAX_SHAPES:
+        probs, seeds = cs.gumbel_inputs(B, V)
+        want = ops.gumbel_argmax(probs, seeds)
         got = [torch.empty_like(w) for w in want]
-        p, q, toks, u, keys, ctx, seen, live = args
-        rc = sv.spec_verify_wm_launch(
-            *(ops._ptr(x) for x in (p, q, toks, u, keys, ctx, seen, live)),
-            ops._ptr(None), *(ops._ptr(x) for x in got), B, 4, V, 30, 1, 0,
-            30, *ops.DEFAULT_STREAMS, ops._stream(p))
+        split = ops.race_split(B, V)
+        rc = ga.gumbel_argmax_launch(
+            ops._ptr(probs), ops._ptr(seeds), B, V, split,
+            *(ops._ptr(x) for x in got), ops._stream(probs))
         torch.cuda.synchronize()
         if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise SystemExit(f"kernel_trace: traced tail B={B} V={V} "
-                             "differs")
-        print(json.dumps(dict(kernel="spec_verify_wm_tournament",
-                              case=f"B={B} V={V}",
-                              **report(sv, 8 * B, TAIL_PHASES))))
+            raise SystemExit(f"kernel_trace: traced gumbel_argmax B={B} "
+                             f"V={V} differs")
+        if split == 0:
+            width = min(32, 1 << (V - 1).bit_length())
+            n_blocks = -(-B * width // 256)    # GA_SEG_THREADS
+        else:
+            n_blocks = B * split
+        phases = (GUMBEL_CLUSTER_PHASES if split > 1 else
+                  GUMBEL_PHASES[split])
+        print(json.dumps(dict(kernel="gumbel_argmax", case=f"B={B} V={V}",
+                              split=split,
+                              **report(ga, n_blocks, phases))))
 
 
 def trace_ssd(cs, ops):
@@ -381,7 +451,7 @@ def trace_sequence(cs, ops):
             "wkv": build_traced("wkv_traced", CSRC / "wkv.cu", WKV_MARKS,
                                 decl_after='#include "recurrent.cuh"\n')}
     for i, (name, kernel, shape) in enumerate(cs.REC_CASES):
-        if kernel not in libs:
+        if kernel not in libs or "chunk" in shape:   # the tiled ssd only
             continue
         lib = libs[kernel]
         for dtype in (torch.float32, torch.bfloat16):

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Which (hd, N, chunk) the chunked SSD scan takes, against the earlier
-kernel's shared-memory rule, on a machine that builds the kernels.
+"""Which (hd, N, chunk) the chunked SSD scan takes, against the scalar
+kernel's own shared-memory rule, on a machine that builds the kernels.
 
     PYTHONPATH=src python3 scripts/ssd_shapes.py
 
-``ops.ssd`` refuses a chunk of Lc = min(chunk, S) tokens whose block needs
-more than ``ops.SMEM_BLOCK_MAX`` bytes of shared memory, as
-``csrc/ssd.cu``'s ``ssd_smem_bytes`` counts them.  The scalar kernel it
-replaced needed 4 (3 Lc + Lc hd + 2 Lc (N + 1) + Lc^2 + hd (N + 1)) bytes.
-Over hd and Lc in 1..256 and N in 1..2048 this prints how many shapes the
-earlier rule took, how many of those the kernel refuses now, and the range
-of hd, N and Lc where it does; then how many it takes that the earlier
-rule refused.  Both counts rise with N, so each (hd, Lc) is settled by the
-largest N either takes (a binary search over ``ssd_smem_bytes``).
+``ops.ssd`` runs a chunk of Lc = min(chunk, S) tokens on the tiled kernel
+(``csrc/ssd.cu``) wherever its layout fits ``ops.SMEM_BLOCK_MAX`` bytes of
+shared memory (``ssd_smem_bytes``), else on the scalar kernel
+(``csrc/ssd_scalar.cu``, the tiled kernel's predecessor) where that one's
+layout fits (``ssd_scalar_smem_bytes``: 4 (3 Lc + Lc hd + 2 Lc (N + 1) +
+Lc^2 + hd (N + 1)) bytes), and refuses it elsewhere.  Over hd and Lc in
+1..256 and N in 1..2048 this prints how many shapes the scalar rule takes,
+how many of those ``ops.ssd`` refuses (0 unless the choice is broken), how
+many run on the scalar kernel because the tiled layout does not hold them
+and the range of hd, N and Lc where they lie, how many the tiled layout
+takes that the scalar one does not, and whether ``ops.ssd_kernel_for``
+names the tiled kernel at every shape its layout holds.  Every count rises
+with N, so each (hd, Lc) is settled by the largest N each layout takes (a
+binary search over its byte count).
 """
 from __future__ import annotations
 
@@ -24,17 +29,12 @@ ROOT = Path(__file__).resolve().parents[1]
 N_MAX = 2048
 
 
-def old_max_n(hd, Lc, limit):
-    """The largest N <= N_MAX the earlier rule took (0: none)."""
-    fixed = 3 * Lc + Lc * hd + 2 * Lc + Lc * Lc + hd
-    return max(0, min(N_MAX, (limit // 4 - fixed) // (2 * Lc + hd)))
-
-
-def new_max_n(lib, hd, Lc, limit):
+def max_n(smem_bytes, hd, Lc, limit):
+    """The largest N <= N_MAX whose chunk the layout holds (0: none)."""
     lo, hi = 0, N_MAX            # lo is taken (0: nothing is)
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if lib.ssd_smem_bytes(hd, mid, Lc) <= limit:
+        if smem_bytes(hd, mid, Lc) <= limit:
             lo = mid
         else:
             hi = mid - 1
@@ -46,26 +46,40 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     lib = build.load()
     limit = ops.SMEM_BLOCK_MAX
-    took = lost = gained = 0
-    lost_hd, lost_lc, lost_n = set(), set(), []
+
+    def wrapper(hd, N, Lc):         # 0 where ops.ssd takes the chunk
+        return 0 if ops.ssd_kernel_for(hd, N, Lc) else limit + 1
+
+    took = refused = scalar = tiled_only = 0
+    mismatched = []
+    sc_hd, sc_lc, sc_n = set(), set(), []
     for hd in range(1, 257):
         for Lc in range(1, 257):
-            a, b = old_max_n(hd, Lc, limit), new_max_n(lib, hd, Lc, limit)
+            a = max_n(lib.ssd_scalar_smem_bytes, hd, Lc, limit)
+            b = max_n(lib.ssd_smem_bytes, hd, Lc, limit)
+            taken = max_n(wrapper, hd, Lc, limit)   # what ops.ssd takes
             took += a
+            refused += max(0, a - taken)
+            tiled_only += max(0, b - a)
             if b < a:
-                lost += a - b
-                lost_hd.add(hd)
-                lost_lc.add(Lc)
-                lost_n.append(b + 1)
-            else:
-                gained += b - a
+                scalar += a - b
+                sc_hd.add(hd)
+                sc_lc.add(Lc)
+                sc_n.append(b + 1)
+            # the wrapper's choice on each side of each layout's edge
+            for n, want in ((b, "tiled"), (b + 1, "scalar" if a > b else
+                                           None), (max(a, b) + 1, None)):
+                if 0 < n <= N_MAX and ops.ssd_kernel_for(hd, n, Lc) != want:
+                    mismatched.append([hd, n, Lc])
     rng = (lambda s: [min(s), max(s)] if s else None)
-    print(json.dumps({"took_before": took, "refused_now": lost,
-                      "refused_hd": rng(lost_hd), "refused_Lc": rng(lost_lc),
-                      "refused_N_from": min(lost_n) if lost_n else None,
-                      "taken_now_refused_before": gained,
+    print(json.dumps({"scalar_rule_takes": took, "refused_of_those": refused,
+                      "run_on_scalar": scalar, "scalar_hd": rng(sc_hd),
+                      "scalar_Lc": rng(sc_lc),
+                      "scalar_N_from": min(sc_n) if sc_n else None,
+                      "tiled_takes_scalar_rule_refuses": tiled_only,
+                      "choice_mismatches": mismatched[:10],
                       "zamba2_bytes": lib.ssd_smem_bytes(64, 64, 128)}))
-    return 0
+    return 0 if refused == 0 and not mismatched else 1
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ the library's geometry, 512 threads over 32 rows (``dt32_c*``); and that
 geometry with each block's decayed copy of every tile gathered into its own
 shared memory before y (``gather32_c*``).  Prints, per variant, how many
 clusters the card holds at once at zamba2-1.2b's shape (B=1 and B=4), then
-for every ``ssd`` case of ``chip_smoke.REC_CASES`` (float32) each
-variant's median launch time, whether its outputs are within
+for every ``ssd`` case of ``chip_smoke.REC_CASES`` at ``REC_CHUNK`` (float32)
+each variant's median launch time, whether its outputs are within
 ``ref.ssd_tol`` of the plain version, and the library kernel's
 (``kernel``) time on the same inputs.  The last line is the card's name and
 power limit.  Compare only within one call.
@@ -72,7 +72,7 @@ def main() -> int:
                           "clusters_at_once": {k: o // 1000
                                                for k, o in occ.items()}}))
     for i, (case, kernel, shape) in enumerate(cs.REC_CASES):
-        if kernel != "ssd":
+        if kernel != "ssd" or "chunk" in shape:
             continue
         args = cs.rec_inputs(kernel, shape, torch.float32, seed=i + 1)
         la, dtx, Bf, Cf, h0 = args

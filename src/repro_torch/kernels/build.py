@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
-    "gumbel_argmax_launch": [_P, _P, _I, _I, _P, _P, _P],
+    "gumbel_argmax_launch": [_P, _P, _I, _I, _I, _P, _P, _P],
     "tournament_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
     "tournament_keyed_launch": [_P, _P, _P, _I, _I, _I, _U, _P, _P, _P],
     "spec_verify_launch": [_P] * 5 + [_I] * 3 + [_P] * 5,
@@ -38,6 +38,8 @@ SIGNATURES = {
     "ssd_step_launch": [_P] * 7 + [_I] * 6 + [_P],
     "ssd_launch": [_P] * 7 + [_I] * 7 + [_P],
     "ssd_smem_bytes": [_I] * 3,
+    "ssd_scalar_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "ssd_scalar_smem_bytes": [_I] * 3,
 }
 
 

@@ -27,10 +27,14 @@
 // Used by tournament_keyed.cu and by spec_verify_wm.cu's tournament
 // branch (with cluster_sum for the normalisation and cluster_race for the
 // draw); tournament.cu still runs block_tournament (prf.cuh), one block
-// per row.
+// per row.  The Gumbel races of gumbel_argmax.cu and of spec_verify_wm.cu's
+// race branch split a row over a cluster too: race_slice races a slice
+// straight from global memory and cluster_merge takes the members'
+// winners to member 0; ct_launch launches any of these kernels.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
 #include "prf.cuh"
 
@@ -191,27 +195,47 @@ __device__ __forceinline__ float cluster_sum(float part,
   return s;
 }
 
-// The cluster's best (score, index) from each thread's own (ties to the
-// smaller index, as arg_better): each block's winner goes to member 0,
-// which returns the cluster's (other members' value is unspecified).
-// Every thread of every block must call it, after a cluster barrier that
-// follows the blocks' start.
-__device__ __forceinline__ int cluster_pick(float best, int bi,
-                                            ClusterTournamentShared &sh) {
+// The two halves of a cluster barrier, for a barrier whose wait can come
+// later than its arrival (every thread of every member calls both, in
+// turn): after the wait every member has arrived, so has started.
+__device__ __forceinline__ void ct_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void ct_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The cluster's best (score, index) from each block's winner (best, bi at
+// thread 0, as block_argmax leaves them): thread 0 of every member writes
+// them into member 0's s_best[rank] / s_idx[rank] (arrays of at least C
+// entries), a cluster barrier, and member 0 returns the cluster's winner
+// (ties to the smaller index, as arg_better; other members' value is
+// unspecified).  Every thread of every block must call it, after a
+// cluster barrier (or its wait) that follows every member's start.
+__device__ __forceinline__ int cluster_merge(float best, int bi,
+                                             float *s_best, int *s_idx) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
-  block_argmax(best, bi);
   if (threadIdx.x == 0) {
     const unsigned rank = cluster.block_rank();
-    *cluster.map_shared_rank(&sh.best_s[rank], 0u) = best;
-    *cluster.map_shared_rank(&sh.best_i[rank], 0u) = bi;
+    *cluster.map_shared_rank(&s_best[rank], 0u) = best;
+    *cluster.map_shared_rank(&s_idx[rank], 0u) = bi;
   }
   cluster.sync();
   best = -INFINITY;
   bi = INT_MAX;
-  for (int c = 0; c < C; ++c) arg_better(sh.best_s[c], sh.best_i[c], best, bi);
+  for (int c = 0; c < C; ++c) arg_better(s_best[c], s_idx[c], best, bi);
   return bi;
+}
+
+// The cluster's best (score, index) from each thread's own, at member 0
+// (block_argmax, then cluster_merge).  Every thread of every block must
+// call it, after a cluster barrier that follows the blocks' start.
+__device__ __forceinline__ int cluster_pick(float best, int bi,
+                                            ClusterTournamentShared &sh) {
+  block_argmax(best, bi);
+  return cluster_merge(best, bi, sh.best_s, sh.best_i);
 }
 
 // The argmax of the final row over the cluster (ties to the smaller
@@ -227,7 +251,7 @@ __device__ __forceinline__ int cluster_argmax(const float *row, int lo,
 }
 
 // The Gumbel race log(U_w)/p_w over the cluster's row with `seed` (ties
-// to the smaller index, as block_race), the winner at member 0.
+// to the smaller index, as arg_better), the winner at member 0.
 __device__ __forceinline__ int cluster_race(const float *row, int lo, int hi,
                                            uint32_t seed,
                                            ClusterTournamentShared &sh) {
@@ -236,4 +260,101 @@ __device__ __forceinline__ int cluster_race(const float *row, int lo, int hi,
   for (int w = lo + threadIdx.x; w < hi; w += blockDim.x)
     arg_better(race_score(row[w - lo], seed, (uint32_t)w), w, best, bi);
   return cluster_pick(best, bi, sh);
+}
+
+// The entries of a member's slice of a race over V entries split C ways:
+// ceil(V / C) rounded up to a multiple of 4, so that a row on the 16-byte
+// grid keeps every slice on it.  (A race's winner does not depend on the
+// split; a tournament's sums do, and keep ct_slice.)
+__host__ __device__ inline int race_len(int V, int C) {
+  return ((V + C - 1) / C + 3) & ~3;
+}
+
+// Member `rank`'s slice [lo, hi) of a race over V entries split C ways.
+__device__ __forceinline__ void race_bounds(int V, int C, int rank, int &lo,
+                                            int &hi) {
+  const int L = race_len(V, C);
+  lo = min(V, rank * L);
+  hi = min(V, lo + L);
+}
+
+// This thread's best (score, index) of the Gumbel race over the entries
+// [lo, hi) of a row in global memory: r_w = p_w, or (p_w − q_w)_+ when q
+// is not null, scored race_score(r_w, seed, w).  16-byte loads over the
+// part of the slice on the 16-byte grid (where p and q sit at the same
+// offset from it), single loads before and after it.  The (score, index)
+// order is total, so neither the order of the visits nor the split of a
+// row changes the winner.
+__device__ __forceinline__ void race_slice(const float *__restrict__ p,
+                                           const float *__restrict__ q,
+                                           int lo, int hi, uint32_t seed,
+                                           float &best, int &bi) {
+  best = -INFINITY;
+  bi = INT_MAX;
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const unsigned off = (unsigned)((uintptr_t)(p + lo) & 15u);
+  int a0 = hi, a1 = hi;  // [a0, a1): 16-byte pieces
+  if (q == nullptr || (unsigned)((uintptr_t)(q + lo) & 15u) == off) {
+    a0 = min(hi, lo + (int)(((16u - off) & 15u) >> 2));
+    a1 = a0 + ((hi - a0) & ~3);
+  }
+  auto visit = [&](int w, float pw, float qw) {
+    const float r = q != nullptr ? fmaxf(pw - qw, 0.f) : pw;
+    arg_better(race_score(r, seed, (uint32_t)w), w, best, bi);
+  };
+  for (int w = lo + tid; w < a0; w += NT) visit(w, p[w], q ? q[w] : 0.f);
+  for (int w = a0 + 4 * tid; w < a1; w += 4 * NT) {
+    const float4 pv = *reinterpret_cast<const float4 *>(p + w);
+    const float4 qv = q != nullptr
+                          ? *reinterpret_cast<const float4 *>(q + w)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    visit(w, pv.x, qv.x);
+    visit(w + 1, pv.y, qv.y);
+    visit(w + 2, pv.z, qv.z);
+    visit(w + 3, pv.w, qv.w);
+  }
+  for (int w = a1 + tid; w < hi; w += NT) visit(w, p[w], q ? q[w] : 0.f);
+}
+
+// Threads of a block that races a slice of V entries split C ways: one
+// 16-byte piece each, rounded up to a warp, between 32 and `cap`.
+inline int race_threads(int V, int C, int cap) {
+  const int t = (race_len(V, C) / 4 + 31) / 32 * 32;
+  return t < 32 ? 32 : t > cap ? cap : t;
+}
+
+// Launch `kernel` as n clusters of C blocks (blockIdx.x / C the cluster,
+// blockIdx.x % C the member) of `threads` threads and `smem` bytes of
+// dynamic shared memory; C = 1 is a plain launch, C past CT_MAX_CLUSTER
+// (the portable size) is opted into first.  A refused launch's error is
+// returned and cleared.
+template <typename... Params, typename... Args>
+inline int ct_launch(void (*kernel)(Params...), int n, int C, int threads,
+                     int smem, cudaStream_t stream, Args... args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess && C > CT_MAX_CLUSTER)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }

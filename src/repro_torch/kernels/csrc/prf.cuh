@@ -93,17 +93,6 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// One strided race over row[0, V): returns the winning token.
-__device__ __forceinline__ int block_race(const float *row, int V,
-                                          uint32_t seed) {
-  float best = -INFINITY;
-  int bi = INT_MAX;
-  for (int w = threadIdx.x; w < V; w += blockDim.x)
-    arg_better(race_score(row[w], seed, (uint32_t)w), w, best, bi);
-  block_argmax(best, bi);
-  return bi;
-}
-
 // m SynthID tournament rounds in place over row[0, V) with g-seed `seed`:
 // p <- p * ((1 + g) - sum(p * g)), g = gbit(seed, w + V*l).  Each thread
 // owns the same strided lanes in every pass, so the rows need no barrier

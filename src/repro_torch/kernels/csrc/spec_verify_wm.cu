@@ -17,9 +17,20 @@
 // device times are told apart).
 //
 // Race: bound by its bytes (the slot's p and q rows, 8·V bytes a row: 1 MB
-// at B=4, V=32000, 0.3 us at 3.35 TB/s) and at serving shapes by launch
-// latency.  One block per row; warp 0 gathers the 2·K probabilities
-// directly (no one-hot pass over K·V), then the block streams one row.
+// at B=4, V=32000, 0.3 us at 3.35 TB/s).  The first port ran one
+// 1024-thread block per row, 4 of 132 SMs busy at B=4, each hashing,
+// taking the logf and dividing for 32000 entries alone (17.6 us).  Now
+// one row is split over a cluster of TAIL_CLUSTER blocks, on the
+// tournament's skeleton: each member runs the accept test itself (warp 0
+// gathers the 2·K probabilities directly, no one-hot pass over K·V;
+// member 0 writes n_acc and the prefix), races its race_bounds slice of
+// the unnormalised (p − q)_+ straight from global memory (race_slice,
+// 16-byte loads) with the seen-or-wm seed, and the members' winners go to
+// member 0 (cluster_merge), which writes the token and U.  The merge is
+// exact, so the row's token equals a single block's bit for bit.  What
+// bounds it (scripts/kernel_trace.py): the accept test's dependent loads
+// (live flag, drafts, the gathered probabilities, the slot's words), the
+// slice, and the merge's exchange between SMs, each 1.7-2.5 us at V=32000.
 //
 // Tournament: bound by operations (m·V g-bit hashes a row, and the m
 // rounds of a row are serial: each needs the whole row's mass).  The
@@ -42,7 +53,7 @@
 
 #include "cluster_tournament.cuh"
 
-#define TAIL_CLUSTER 8               // blocks a tournament row
+#define TAIL_CLUSTER 8               // blocks a row (race and tournament)
 #define TAIL_SMEM_MAX (200 * 1024)   // a slice in shared memory up to this
 
 struct VerifyArgs {
@@ -136,24 +147,29 @@ __device__ __forceinline__ TailRow tail_row(const VerifyArgs &a, int b,
   return t;
 }
 
-// The race: one block per row.
+// The race: one row over a cluster; member `rank` races the race_bounds
+// slice [lo, hi) of the row.
 __global__ void __launch_bounds__(REPRO_THREADS)
 spec_verify_wm_kernel(VerifyArgs a) {
-  const int b = blockIdx.x, V = a.V, tid = threadIdx.x;
-  if (!a.live[b]) {
-    dead_row(a, b);
+  __shared__ float s_best[TAIL_CLUSTER];
+  __shared__ int s_idx[TAIL_CLUSTER];
+  const int C = TAIL_CLUSTER, rank = blockIdx.x % C, b = blockIdx.x / C;
+  if (!a.live[b]) {  // the whole cluster leaves together
+    if (rank == 0) dead_row(a, b);
     return;
   }
-  const TailRow t = tail_row(a, b, accept_test(a, b, true));
+  ct_arrive();  // this member has started
+  const TailRow t = tail_row(a, b, accept_test(a, b, rank == 0));
   const uint32_t seed = t.seen ? t.pl_s : t.wm_s;
-  float best = -INFINITY;
-  int bi = INT_MAX;
-  for (int w = tid; w < V; w += blockDim.x) {
-    const float r = fmaxf(t.ps[w] - (t.qs ? t.qs[w] : 0.f), 0.f);
-    arg_better(race_score(r, seed, (uint32_t)w), w, best, bi);
-  }
+  int lo, hi;
+  race_bounds(a.V, C, rank, lo, hi);
+  float best;
+  int bi;
+  race_slice(t.ps, t.qs, lo, hi, seed, best, bi);
   block_argmax(best, bi);
-  if (tid == 0) {
+  ct_wait();  // every member has started: member 0 may be written
+  bi = cluster_merge(best, bi, s_best, s_idx);
+  if (rank == 0 && threadIdx.x == 0) {
     a.etok[b] = bi;
     a.estat[b] = prf_uniform(seed, (uint32_t)bi);
   }
@@ -209,9 +225,10 @@ spec_verify_wm_tournament_kernel(VerifyArgs a) {
         prf_gbit(t.wm_s, (uint32_t)tok + (uint32_t)V * (uint32_t)l);
 }
 
-// The race: one block per row.  The tournament: one cluster of
-// TAIL_CLUSTER blocks per row, each slice in shared memory (scratch ==
-// null) when 4 · ceil(V / TAIL_CLUSTER) <= TAIL_SMEM_MAX, else in scratch.
+// The race: one cluster of TAIL_CLUSTER blocks per row, its slices read
+// from p and q.  The tournament: one cluster of TAIL_CLUSTER blocks per
+// row, each slice in shared memory (scratch == null) when
+// 4 · ceil(V / TAIL_CLUSTER) <= TAIL_SMEM_MAX, else in scratch.
 extern "C" int spec_verify_wm_launch(
     const void *p, const void *q, const void *tokens, const void *u,
     const void *keys, const void *ctx, const void *seen, const void *live,
@@ -245,30 +262,15 @@ extern "C" int spec_verify_wm_launch(
   a.draw_stream = draw_stream;
   cudaStream_t st = (cudaStream_t)stream;
   if (!tournament) {
-    spec_verify_wm_kernel<<<B, REPRO_THREADS, 0, st>>>(a);
-    return (int)cudaGetLastError();
+    return ct_launch(spec_verify_wm_kernel, B, TAIL_CLUSTER,
+                     race_threads(V, TAIL_CLUSTER, REPRO_THREADS), 0, st, a);
   }
   const int slice = (V + TAIL_CLUSTER - 1) / TAIL_CLUSTER;
   if (scratch == nullptr && 4 * slice > TAIL_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   const int smem = scratch == nullptr ? 4 * slice : 0;
-  cudaError_t e = allow_smem(spec_verify_wm_tournament_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
   const int threads =
       slice >= REPRO_THREADS ? REPRO_THREADS : ((slice + 31) / 32) * 32;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * TAIL_CLUSTER);
-  cfg.blockDim = dim3(threads > 0 ? threads : 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = TAIL_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, spec_verify_wm_tournament_kernel, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return ct_launch(spec_verify_wm_tournament_kernel, B, TAIL_CLUSTER,
+                   threads > 0 ? threads : 32, smem, st, a);
 }

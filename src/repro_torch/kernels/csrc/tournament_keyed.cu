@@ -76,27 +76,12 @@ extern "C" int tournament_keyed_launch(const void *probs, const void *keys,
                                        void *arg, void *stream) {
   const int slice = (V + TK_CLUSTER - 1) / TK_CLUSTER;
   const int smem_bytes = 4 * slice <= TK_SMEM_MAX ? 4 * slice : 0;
-  cudaError_t e = allow_smem(tournament_keyed_kernel, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   const int threads =
       slice >= REPRO_THREADS ? REPRO_THREADS : ((slice + 31) / 32) * 32;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * TK_CLUSTER);
-  cfg.blockDim = dim3(threads > 0 ? threads : 32);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = TK_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tournament_keyed_kernel,
-                         (const float *)probs, (const long long *)keys,
-                         (const long long *)ctx, V, m, (uint32_t)stream_id,
-                         smem_bytes > 0 ? 1 : 0, (float *)out,
-                         (long long *)arg);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return ct_launch(tournament_keyed_kernel, B, TK_CLUSTER,
+                   threads > 0 ? threads : 32, smem_bytes,
+                   (cudaStream_t)stream, (const float *)probs,
+                   (const long long *)keys, (const long long *)ctx, V, m,
+                   (uint32_t)stream_id, smem_bytes > 0 ? 1 : 0, (float *)out,
+                   (long long *)arg);
 }

@@ -7,9 +7,11 @@ CUDA tensor to the plain version.  Any other device raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do
 not count; ``spec_verify_wm`` counts its race and its tournament branch
-apart, under ``spec_verify_wm`` and ``spec_verify_wm_tournament``);
-``reset_launches`` zeroes it, so a caller can show that a run went through
-the kernels.
+apart, under ``spec_verify_wm`` and ``spec_verify_wm_tournament``; ``ssd``
+counts both chunked-scan kernels, and ``ssd_scalar`` the scalar one's
+launches again, so the tiled kernel's are ``ssd`` less ``ssd_scalar``);
+``reset_launches`` zeroes them, so a caller can show that a run went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -31,9 +33,10 @@ DEFAULT_STREAMS = (_prf.STREAM_TARGET, _prf.STREAM_PLAIN + 2,
 # a working row of 4·V bytes lives in shared memory up to this size
 # (V <= 51200); past it the kernels keep the row in device memory
 SMEM_ROW_MAX = 200 * 1024
-# the fused tail's tournament splits a row over a cluster of this many
-# blocks (csrc/spec_verify_wm.cu's TAIL_CLUSTER), each slice of
-# ceil(V / TAIL_CLUSTER) entries in shared memory up to SMEM_ROW_MAX
+# the fused tail splits a row over a cluster of this many blocks
+# (csrc/spec_verify_wm.cu's TAIL_CLUSTER), the race and the tournament
+# alike; a tournament slice of ceil(V / TAIL_CLUSTER) entries lives in
+# shared memory up to SMEM_ROW_MAX
 TAIL_CLUSTER = 8
 # the paged-attention kernel's head sizes: multiples of 8 (16-byte bf16
 # vectors) up to 256 (csrc/paged_attention.cu's PA_MAX_HD)
@@ -48,13 +51,22 @@ SMEM_BLOCK_MAX = 227 * 1024
 # most 32 lanes of 4·8 columns (csrc/ssd_step.cu's SSD_MAX_NK)
 SSD_MAX_N = 1024
 
+# the Gumbel race's launch shape (csrc/gumbel_argmax.cu), from (B, V)
+# alone: rows up to RACE_SEG_MAX_V entries race in segments of a warp;
+# wider ones over a cluster of blocks at the serving batches (RACE_SPLITS:
+# up to b_max rows, c blocks a row; 16, a non-portable cluster, up to 4
+# rows: on an H100 it beat 8 there, 0.0045 against 0.0053 ms at V=32000,
+# and lost at 8 rows), else one block a row
+RACE_SEG_MAX_V = 1024
+RACE_SPLITS = ((4, 16), (8, 8))
+
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0,
                             "spec_verify_wm_tournament": 0,
                             "gumbel_argmax": 0,
                             "tournament_keyed": 0, "paged_attention": 0,
                             "wkv": 0, "wkv_step": 0, "ssd": 0,
-                            "ssd_step": 0, "tournament": 0,
-                            "spec_verify": 0}
+                            "ssd_scalar": 0, "ssd_step": 0,
+                            "tournament": 0, "spec_verify": 0}
 
 
 def reset_launches() -> None:
@@ -107,9 +119,19 @@ def gumbel_argmax(probs: torch.Tensor, seeds: torch.Tensor):
     tok = torch.empty(B, dtype=torch.int64, device=probs.device)
     u = torch.empty(B, dtype=torch.float32, device=probs.device)
     rc = build.load().gumbel_argmax_launch(
-        _ptr(probs), _ptr(seeds), B, V, _ptr(tok), _ptr(u), _stream(probs))
+        _ptr(probs), _ptr(seeds), B, V, race_split(B, V), _ptr(tok),
+        _ptr(u), _stream(probs))
     _launched("gumbel_argmax", rc)
     return tok, u
+
+
+def race_split(B: int, V: int) -> int:
+    """The race kernel's launch shape for B rows of V entries: 0 for
+    segments of a warp, else the blocks that race one row (a cluster when
+    above 1).  Every shape gives the same tokens and U bit for bit."""
+    if V <= RACE_SEG_MAX_V:
+        return 0
+    return next((c for b_max, c in RACE_SPLITS if B <= b_max), 1)
 
 
 def tournament(probs: torch.Tensor, seeds: torch.Tensor, *, m: int):
@@ -386,9 +408,8 @@ def ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
     """The chunked Mamba2 SSD scan: la (B, S, H), dtx (B, S, H, hd), B and
     C (B, S, N), h0 (B, H, hd, N), in chunks of min(chunk, S) tokens, the
     last identity-padded -> (y (B, S, H, hd) f32, the final state f32).
-    Types as ``ssd_step``; one chunk's tiles must fit a block's shared
-    memory (as ``csrc/ssd.cu``'s ``ssd_smem_bytes`` counts it, at most
-    SMEM_BLOCK_MAX)."""
+    Types as ``ssd_step``; one chunk must fit a block's shared memory in
+    one of the two kernels' layouts (``ssd_kernel_for``)."""
     if chunk < 1:
         raise ValueError(f"ssd: chunk {chunk}; the chunked scan needs >= 1")
     if not _on_cuda(la, dtx, Bf, Cf, h0):
@@ -397,17 +418,34 @@ def ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
     B, S, H, hd = dtx.shape
     N = Bf.shape[-1]
     Lc = min(chunk, S)
+    kernel = ssd_kernel_for(hd, N, Lc)
+    if kernel is None:
+        raise ValueError(f"ssd: a chunk of {Lc} at hd={hd}, N={N} fits "
+                         f"neither kernel's layout in a block's "
+                         f"{SMEM_BLOCK_MAX} bytes of shared memory")
     lib = build.load()
-    smem = lib.ssd_smem_bytes(hd, N, Lc)
-    if smem > SMEM_BLOCK_MAX:
-        raise ValueError(f"ssd: a chunk of {Lc} at hd={hd}, N={N} needs "
-                         f"{smem} bytes of shared memory, over the block's "
-                         f"{SMEM_BLOCK_MAX}")
+    launch = lib.ssd_launch if kernel == "tiled" else lib.ssd_scalar_launch
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=la.device)
     h1 = torch.empty_like(h0)
-    rc = lib.ssd_launch(
+    rc = launch(
         _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
         _ptr(h1), B, S, H, hd, N, Lc, int(dtype == torch.bfloat16),
         _stream(la))
     _launched("ssd", rc)
+    if kernel == "scalar":
+        LAUNCHES["ssd_scalar"] += 1
     return y, h1
+
+
+def ssd_kernel_for(hd: int, N: int, Lc: int) -> Optional[str]:
+    """The chunked-scan kernel for chunks of Lc tokens at (hd, N), from
+    these alone (never from B, so a row alone runs what its batch runs):
+    "tiled" (csrc/ssd.cu) wherever its layout fits a block's shared memory
+    (``ssd_smem_bytes``), else "scalar" (csrc/ssd_scalar.cu) where its own
+    does (``ssd_scalar_smem_bytes``), else None."""
+    lib = build.load()
+    if lib.ssd_smem_bytes(hd, N, Lc) <= SMEM_BLOCK_MAX:
+        return "tiled"
+    if lib.ssd_scalar_smem_bytes(hd, N, Lc) <= SMEM_BLOCK_MAX:
+        return "scalar"
+    return None

@@ -98,8 +98,8 @@ def test_kernels_match_plain_versions(cuda, V):
                             "gumbel_argmax": 1,
                             "tournament_keyed": 1, "paged_attention": 0,
                             "wkv": 0, "wkv_step": 0, "ssd": 0,
-                            "ssd_step": 0, "tournament": 0,
-                            "spec_verify": 0}
+                            "ssd_scalar": 0, "ssd_step": 0,
+                            "tournament": 0, "spec_verify": 0}
 
 
 @pytest.mark.gpu
@@ -599,3 +599,95 @@ def test_spec_verify_matches_plain_version(cuda, B, K, V):
     same = tk == tr
     assert bool((same | (marg < MARGIN)).all())
     assert torch.equal(uk[same], ur[same])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [10, 96, 4099, 32000, 256128])
+def test_gumbel_argmax_launch_shapes_agree(cuda, V):
+    """The same rows in batches of 1, 5, 8, 9 and 4096 (every launch
+    shape ops.race_split picks at V > 1024, on both sides of each switch: a
+    row over 16 blocks, over 8, and one block a row; V <= 1024 races in segments of a warp; V = 4099 puts
+    every other row off the 16-byte grid) give the same token and U bit for
+    bit, and the first 8 rows match the plain version (tokens outside
+    margin rows, U on equal tokens)."""
+    g = torch.Generator(device=cuda).manual_seed(V + 5)
+    probs = torch.softmax(torch.randn((4096, V), generator=g, device=cuda)
+                          * 3, -1)
+    probs[3] = 0.0                   # an all-zero row: token 0
+    seeds = torch.randint(0, 2**32, (4096,), generator=g, device=cuda)
+    ops.reset_launches()
+    tok, u = ops.gumbel_argmax(probs, seeds)
+    for B in (1, 5, 8, 9):
+        tb, ub = ops.gumbel_argmax(probs[:B], seeds[:B])
+        assert torch.equal(tb, tok[:B]) and torch.equal(ub, u[:B]), B
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gumbel_argmax"] == 5
+    assert int(tok[3]) == 0
+    tr, ur = ref.gumbel_argmax_ref(probs[:8], seeds[:8])
+    marg = ref.margin(ref.race_scores(probs[:8], seeds[:8])[0])
+    same = tok[:8] == tr
+    assert bool((same | (marg < MARGIN)).all())
+    assert torch.equal(u[:8][same], ur[same])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [96, 32000, 256128])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_spec_verify_wm_race_matches_plain_version(cuda, B, V):
+    """The race tail, one row over a cluster: n_acc and the prefix
+    bitwise, the token outside margin rows, U on equal tokens, dead rows
+    zero (row 0 accepts every draft: the bonus slot; at B >= 4 row 1 is
+    seen everywhere and row 2 dead), and each row alone equal to it in
+    the batch, bit for bit."""
+    args = [x[:B].contiguous() for x in _inputs(8, 4, V, cuda, seed=V + B)]
+    p, q, toks, u, keys, ctx, seen, live = args
+    ops.reset_launches()
+    nk, pk, tk, uk = ops.spec_verify_wm(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spec_verify_wm"] == 1
+    nr, pr, tr, ur = ref.spec_verify_wm_ref(
+        *args, streams=ops.DEFAULT_STREAMS, kind="race", m=0)
+    assert torch.equal(nk, nr) and torch.equal(pk, pr)
+    r, seen_s, wm_s, pl_s, _ = ref.tail_rows(p, q, nr, keys, ctx, seen,
+                                             streams=ops.DEFAULT_STREAMS)
+    marg = ref.margin(ref.race_scores(r, torch.where(seen_s, pl_s,
+                                                     wm_s))[0])
+    same = tk == tr
+    assert bool((same | ~live | (marg < MARGIN)).all())
+    assert torch.equal(uk[same & live], ur[same & live])
+    assert bool((tk[~live] == 0).all() and (nk[~live] == 0).all())
+    for b in range(B):
+        alone = ops.spec_verify_wm(*(x[b:b + 1] for x in args))
+        assert all(torch.equal(a[0], w[b])
+                   for a, w in zip(alone, (nk, pk, tk, uk))), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,chunk,hd,N", [(67, 67, 16, 348),
+                                          (200, 81, 32, 250)])
+def test_ssd_scalar_kernel_takes_what_the_tiled_cannot(cuda, S, chunk, hd,
+                                                       N, dtype):
+    """Chunks the tiled kernel's layout cannot hold and the scalar
+    kernel's can (one chunk; three with a ragged tail) run the scalar
+    kernel, one launch counted under ssd and under ssd_scalar, within ref.ssd_tol of the plain
+    version, each row alone equal to it in the batch; a chunk the tiled
+    layout holds at a wide state runs the tiled kernel, and one that
+    neither holds is refused."""
+    args = _recurrent_inputs("ssd", (2, S, 3, hd, N), dtype, cuda,
+                             seed=S + hd + N)
+    ops.reset_launches()
+    got = ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {**{k: 0 for k in ops.LAUNCHES}, "ssd": 1,
+                            "ssd_scalar": 1}
+    _within(got, ref.ssd_chunked_ref(*args, chunk),
+            ref.ssd_tol(*args, chunk=chunk))
+    for b in range(2):
+        alone = ops.ssd(*(a[b:b + 1] for a in args), chunk=chunk)
+        assert all(torch.equal(x[0], w[b]) for x, w in zip(alone, got)), b
+    assert ops.ssd_kernel_for(16, 256, 64) == "tiled"
+    assert ops.ssd_kernel_for(32, 300, 80) is None
+    wide = _recurrent_inputs("ssd", (1, 80, 2, 32, 300), dtype, cuda, seed=1)
+    with pytest.raises(ValueError):
+        ops.ssd(*wide, chunk=80)
