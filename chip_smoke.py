@@ -16,9 +16,13 @@ Phases, each fatal on failure, in this order:
      tournament at B=4 and V=32000, (8, 4096),
      the Monte-Carlo shape (16384, 32000) and a Fig. 1 chunk (20000, 10),
      whose tolerance must also see two emulated faults (m − 1 rounds, a
-     wrong seed row); the unkeyed verify at (4, 4, 32000) and (8, 4,
-     4096); the tournament tail at the serving step's shape (B=8, every
-     row live, no slot seen), each row alone equal to it in the batch;
+     wrong seed row), rows alone and the first 4 rows as a batch equal to
+     the batch's, and at both Monte-Carlo shapes one row expanded to
+     the batch (row stride 0) equal to its contiguous copy; the unkeyed
+     verify at (4, 4, 32000), (8, 4, 4096) and (4, 1, 32000), a p = q
+     row giving token 0, rows alone equal to the batch's; the tournament
+     tail at the serving step's shape (B=8, every row live, no slot
+     seen), each row alone equal to it in the batch;
      times of kernel, plain version and bound;
   2b. the paged-attention kernel against its plain version at the
      target-verify, prefill-chunk, draft and TINY GQA shapes, a kimi-like
@@ -462,7 +466,7 @@ TOURNAMENT_SHAPES = ((4, 32000), (8, 4096), (16384, 32000), (20000, 10))
 # V=256128) and the same two Monte-Carlo shapes (gumbel's modified_dist)
 GUMBEL_ARGMAX_SHAPES = ((4, 32000), (1, 32000), (8, 32000), (4, 256128),
                         (16384, 32000), (20000, 10))
-SPEC_VERIFY_SHAPES = ((4, 4, 32000), (8, 4, 4096))
+SPEC_VERIFY_SHAPES = ((4, 4, 32000), (8, 4, 4096), (4, 1, 32000))
 # the fused tail at the dense-draft serving step's 8 slots (K=4, m=30):
 # the tournament with every slot live and drawing a fresh token, the race
 # with mixed seen and live rows
@@ -474,17 +478,30 @@ def tol_ratio(got, want, rtol=DIST_RTOL, atol=DIST_ATOL) -> float:
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def check_tournament_unkeyed(B, V, record):
-    """ops.tournament against its plain version; at the table's shape also
-    two emulated faults (m − 1 rounds, the seed row shifted by one), each
-    of which the tolerance must see."""
+def tournament_unkeyed_inputs(B, V):
+    """Normalised rows (B, V) with a spread of peaks and seed words for the
+    unkeyed tournament, the same in every checkout."""
     import torch
-    from repro_torch.kernels import ops, ref
-    m = 30
     g = torch.Generator(device=DEV).manual_seed(B + V + 2)
     probs = torch.softmax(torch.randn((B, V), generator=g,
                                       device=DEV) * 3, -1)
     seeds = torch.randint(0, 2**32, (B,), generator=g, device=DEV)
+    return probs, seeds
+
+
+def check_tournament_unkeyed(B, V, record):
+    """ops.tournament against its plain version; at the table's shape also
+    two emulated faults (m − 1 rounds, the seed row shifted by one), each
+    of which the tolerance must see.  Rows alone (``alone_rows``) and, in a
+    larger batch, its first 4 rows as a batch of 4 equal the batch's bit
+    for bit (the launch shape comes from V alone); at the Monte-Carlo
+    shapes (B >= 16384) also one row expanded to (B, V), as
+    ``modified_dist`` hands it over (read at row stride 0), equal to its
+    contiguous copy."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    m = 30
+    probs, seeds = tournament_unkeyed_inputs(B, V)
     got = ops.tournament(probs, seeds, m=m)
     torch.cuda.synchronize()
     want = ref.tournament_ref(probs, seeds, m=m)
@@ -503,22 +520,56 @@ def check_tournament_unkeyed(B, V, record):
                   f"{name}: the tolerance does not see the fault {fault}")
         del bad
     del want
-    times = timings("tournament_kernel",
+    for b in alone_rows(B):
+        check(torch.equal(ops.tournament(probs[b:b + 1], seeds[b:b + 1],
+                                         m=m)[0], got[b]),
+              f"{name}: row {b} alone differs from the batch")
+    if B > 4:
+        check(torch.equal(ops.tournament(probs[:4], seeds[:4], m=m),
+                          got[:4]),
+              f"{name}: its first 4 rows as a batch differ from the batch")
+    extra = {}
+    if B >= 16384:
+        one = probs[B // 2].expand(B, V)
+        check(torch.equal(ops.tournament(one, seeds, m=m),
+                          ops.tournament(one.contiguous(), seeds, m=m)),
+              f"{name}: one row at row stride 0 differs from its copy")
+        extra = dict(
+            one_row_ms=device_ms(lambda: ops.tournament(one, seeds, m=m),
+                                 kernel="tournament"),
+            one_row_bound_ms=bound_ms(4 * V + 4 * B * V + 8 * B,
+                                      B * V * m * OPS_ROUND)[0])
+        del one
+    times = timings("tournament",
                     lambda: ops.tournament(probs, seeds, m=m),
                     lambda: ref.tournament_ref(probs, seeds, m=m))
     bnd, by = bound_ms(8 * B * V + 8 * B, B * V * m * OPS_ROUND)
     record.append(dict(case=name, max_abs_err=err, err_over_tol=ratio,
-                       fault_over_tol=faults, **times, bound_ms=bnd,
-                       bound_by=by))
+                       fault_over_tol=faults,
+                       shape=list(ops.tournament_shape(V)), **extra,
+                       **times, bound_ms=bnd, bound_by=by))
+
+
+def spec_verify_unkeyed_inputs(B, K, V):
+    """p, q (B, K, V), drafts, coins and seed words of the unkeyed verify,
+    the same in every checkout: row 0 accepts every draft (slot K − 1
+    still races); the last row (B >= 2) has p = q, so it accepts every
+    draft and races an all-zero residual (token 0)."""
+    p, q, toks, u, _, ctx, _, _ = verify_inputs(B, K, V, seed=B * K + V)
+    p, seeds = p[:, :K].contiguous(), ctx[:, :K].contiguous()
+    if B >= 2:
+        p[-1] = q[-1]
+    return p, q, toks, u, seeds
 
 
 def check_spec_verify_unkeyed(B, K, V, record):
     """ops.spec_verify against its plain version: n_acc and the prefix
-    bitwise, the residual token outside margin rows, its U bitwise."""
+    bitwise, the residual token outside margin rows, its U bitwise, the
+    p = q row's token 0, and rows alone (``alone_rows``) equal to the
+    batch's, every output bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
-    p, q, toks, u, _, ctx, _, _ = verify_inputs(B, K, V, seed=B * K + V)
-    p, seeds = p[:, :K].contiguous(), ctx[:, :K].contiguous()
+    p, q, toks, u, seeds = spec_verify_unkeyed_inputs(B, K, V)
     nk, pk, tk, uk = ops.spec_verify(p, q, toks, u, seeds)
     torch.cuda.synchronize()
     nr, pr, tr, ur = ref.spec_verify_ref(p, q, toks, u, seeds)
@@ -526,6 +577,8 @@ def check_spec_verify_unkeyed(B, K, V, record):
     check(torch.equal(nk, nr) and torch.equal(pk, pr),
           f"{name}: n_acc {nk.tolist()} vs {nr.tolist()} or prefix")
     check(int(nk[0]) == K, f"{name}: row 0 must accept all K drafts")
+    check(B < 2 or (int(nk[-1]) == K and int(tk[-1]) == 0),
+          f"{name}: the p = q row must accept all and give token 0")
     rows = torch.arange(B, device=DEV)
     slot = nr.clamp_max(K - 1)
     r = (p[rows, slot] - q[rows, slot]).clamp_min(0.0)
@@ -536,6 +589,12 @@ def check_spec_verify_unkeyed(B, K, V, record):
           f"{name}: tokens {tk.tolist()} vs {tr.tolist()}")
     err = float((uk - ur)[same].abs().max())
     check(err == 0.0, f"{name}: U differs by {err}")
+    for b in alone_rows(B):
+        alone = ops.spec_verify(p[b:b + 1], q[b:b + 1], toks[b:b + 1],
+                                u[b:b + 1], seeds[b:b + 1])
+        check(all(torch.equal(x[0], y[b])
+                  for x, y in zip(alone, (nk, pk, tk, uk))),
+              f"{name}: row {b} alone differs from the batch")
     times = timings("spec_verify_kernel",
                     lambda: ops.spec_verify(p, q, toks, u, seeds),
                     lambda: ref.spec_verify_ref(p, q, toks, u, seeds))
@@ -545,7 +604,8 @@ def check_spec_verify_unkeyed(B, K, V, record):
     nbytes = B * (8 * K + 4 * K + 8 * K + 8 * K + 8 * V + 8 + 8 * K + 12)
     bnd, by = bound_ms(nbytes, B * V * (OPS_RACE + 2))
     record.append(dict(case=name, margin_rows=int(in_margin.sum()),
-                       max_abs_err=err, **times, bound_ms=bnd, bound_by=by,
+                       max_abs_err=err, split=ops.spec_verify_split(B, V),
+                       **times, bound_ms=bnd, bound_by=by,
                        all_inputs_bound_ms=8 * B * K * V / HBM_BYTES_PER_S
                        * 1e3))
 

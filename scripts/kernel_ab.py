@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the paged-attention, keyed-tournament, fused-tail (race and
-tournament), Gumbel race, SSD step / scan, chunked SSD and WKV kernels of
-two checkouts on one CUDA card.
+tournament), Gumbel race, unkeyed tournament, unkeyed verify, SSD step /
+scan, chunked SSD and WKV kernels of two checkouts on one CUDA card.
 
     python3 scripts/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT
 
@@ -20,7 +20,23 @@ the Gumbel race at NEW's ``GUMBEL_ARGMAX_SHAPES`` (``gumbel_inputs``), the
 median of its launches, and, where the checkout's wrapper chooses a launch
 shape (``ops.race_split``), also each serving row count at both
 vocabularies with a row over 8 and over 16 blocks (a non-portable
-cluster) through the library's entry ("... split C"); and NEW's
+cluster) through the library's entry ("... split C"); the unkeyed
+tournament at NEW's ``TOURNAMENT_SHAPES`` (``tournament_unkeyed_inputs``)
+and the unkeyed verify at NEW's ``SPEC_VERIFY_SHAPES``
+(``spec_verify_unkeyed_inputs``), the median of their launches, and at
+the Monte-Carlo shape one row expanded to the batch, as
+``modified_dist`` hands it over ("... one row, per call": the device time
+of every kernel of one call, a copy included), and the checkout's own
+Def. 3.1 strength path (``chip_smoke.strengths``, three schemes at
+``MEASURE_SEEDS`` contexts of NEW's (1, 32000) row: "strength path", the
+median wall seconds of 3 runs) as it is and with ``ops.tournament`` handed
+a contiguous copy of its rows ("strength path, rows copied"); where the checkout's
+wrappers choose those launch shapes (``ops.tournament_shape``,
+``ops.spec_verify_split``), also the tournament at B = 4, 8 and 16384, V
+= 32000, and (8, 4096) in the (threads a block, rows a cluster) shapes of
+``TOURNAMENT_SWEEP`` ("... NT=t R=r"; each within rtol 1e-4 of the
+wrapper's floats: other threads sum in another order) and the verify
+with a row over 1, 8 and 16 blocks ("... split C"; bit for bit); and NEW's
 phase 2c cases of the SSD and WKV sequence kernels and the SSD step: the
 chunked scan (``ssd``, at each case's chunk), ``wkv`` and the decode
 step (``ssd_step``), the median of their launches, and the per-timestep
@@ -92,6 +108,12 @@ for B, V in new.TOURNAMENT_KEYED_SHAPES:
         lambda: ops.tournament_keyed(probs, keys, ctx, stream=0xD0, m=30),
         kernel="tournament_keyed_kernel")
 
+# (threads a block, rows a cluster) launch shapes of the unkeyed
+# tournament timed beside the wrapper's own, by V
+TOURNAMENT_SWEEP = {32000: ((512, 1), (512, 4), (1024, 1)),
+                    4096: ((64, 1), (128, 1), (128, 4))}
+
+
 def per_call_ms(fn, reps=10):
     # the device time of every kernel that one call of fn launches
     from torch.profiler import ProfilerActivity, profile
@@ -135,6 +157,79 @@ if hasattr(ops, "race_split"):
                     u, want[1]), f"split {split} differs"
                 ms[f"gumbel_argmax B={B} V={V} split {split}"] = \
                     chip_smoke.device_ms(race, kernel="gumbel_argmax")
+for B, V in new.TOURNAMENT_SHAPES:
+    probs, seeds = new.tournament_unkeyed_inputs(B, V)
+    ms[f"tournament B={B} V={V}"] = chip_smoke.device_ms(
+        lambda: ops.tournament(probs, seeds, m=30), kernel="tournament")
+    if B >= 16384:          # one row expanded, as modified_dist hands it
+        one = probs[B // 2].expand(B, V)
+        ms[f"tournament B={B} V={V} one row, per call"] = per_call_ms(
+            lambda: ops.tournament(one, seeds, m=30))
+        del one
+
+
+def strength_s(reps=3):
+    # the median wall seconds of the checkout's Def. 3.1 strength path
+    import time
+    dist = new.tournament_unkeyed_inputs(1, 32000)[0][0]
+    n = {k: new.MEASURE_SEEDS for k in new.SCHEMES}
+    chip_smoke.strengths(dist, n)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chip_smoke.strengths(dist, n)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[reps // 2]
+
+
+ms["strength path"] = strength_s()
+tournament = ops.tournament
+ops.tournament = lambda probs, seeds, *, m: tournament(probs.contiguous(),
+                                                       seeds, m=m)
+ms["strength path, rows copied"] = strength_s()
+ops.tournament = tournament
+for B, K, V in new.SPEC_VERIFY_SHAPES:
+    args = new.spec_verify_unkeyed_inputs(B, K, V)
+    ms[f"spec_verify B={B} K={K} V={V}"] = chip_smoke.device_ms(
+        lambda: ops.spec_verify(*args), kernel="spec_verify_kernel")
+if hasattr(ops, "tournament_shape"):
+    lib = build.load()
+    for B, V, shapes in ((4, 32000, TOURNAMENT_SWEEP[32000]),
+                         (8, 32000, TOURNAMENT_SWEEP[32000]),
+                         (16384, 32000, TOURNAMENT_SWEEP[32000]),
+                         (8, 4096, TOURNAMENT_SWEEP[4096])):
+        probs, seeds = new.tournament_unkeyed_inputs(B, V)
+        want = ops.tournament(probs, seeds, m=30)
+        out = torch.empty_like(want)
+        for NT, R in shapes:
+            def tour():
+                rc = lib.tournament_launch(
+                    ops._ptr(probs), ops._ptr(seeds), B, V, V, 30, NT, R,
+                    ops._ptr(out), ops._stream(probs))
+                assert rc == 0, f"NT={NT} R={R}: CUDA error {rc}"
+            tour()
+            assert torch.allclose(out, want, rtol=1e-4, atol=1e-7), (NT, R)
+            ms[f"tournament B={B} V={V} NT={NT} R={R}"] = \
+                chip_smoke.device_ms(tour, kernel="tournament")
+        del want, out
+if hasattr(ops, "spec_verify_split"):
+    lib = build.load()
+    for B, K, V in new.SPEC_VERIFY_SHAPES:
+        args = new.spec_verify_unkeyed_inputs(B, K, V)
+        want = ops.spec_verify(*args)
+        got = [torch.empty_like(w) for w in want]
+        for split in (1, 8, 16):
+            def verify():
+                rc = lib.spec_verify_launch(
+                    *(ops._ptr(x) for x in args), B, K, V, split,
+                    *(ops._ptr(x) for x in got), ops._stream(args[0]))
+                assert rc == 0, f"split {split}: CUDA error {rc}"
+            verify()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), split
+            ms[f"spec_verify B={B} K={K} V={V} split {split}"] = \
+                chip_smoke.device_ms(verify, kernel="spec_verify_kernel")
 for i, (name, kernel, shape) in enumerate(new.REC_CASES):
     if kernel not in ("ssd_step", "ssd_scan", "ssd", "wkv"):
         continue

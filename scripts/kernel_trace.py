@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where a block's time goes in the paged-attention, keyed-tournament,
-fused-tail (tournament and race), Gumbel race, SSD step, chunked SSD and
-WKV kernels, on one CUDA card.
+fused-tail (tournament and race), Gumbel race, unkeyed tournament,
+unkeyed verify, SSD step, chunked SSD and WKV kernels, on one CUDA card.
 
     python3 scripts/kernel_trace.py
 
 Builds a traced copy of ``csrc/paged_attention.cu``, of
 ``csrc/tournament_keyed.cu`` (with ``cluster_tournament.cuh``), of
 ``csrc/spec_verify_wm.cu`` (both kernels), of ``csrc/gumbel_argmax.cu``
-(both kernels), of ``csrc/ssd_step.cu``, of ``csrc/ssd.cu`` and of
+(both kernels), of ``csrc/tournament.cu`` (its two register kernels), of
+``csrc/spec_verify.cu``, of ``csrc/ssd_step.cu``, of ``csrc/ssd.cu`` and of
 ``csrc/wkv.cu`` into ``build/kernel_trace/``: thread 0 of every block
 reads ``%globaltimer`` at the marks below.  Runs them at
 ``chip_smoke.PAGED_CASES`` (bf16), ``chip_smoke.TOURNAMENT_KEYED_SHAPES``,
 the tail's tournament and race at the serving step's inputs (every row
 live, no slot seen) at those shapes, the Gumbel race at
 ``chip_smoke.GUMBEL_ARGMAX_SHAPES`` in the launch shape the wrapper picks
-(``ops.race_split``), ``chip_smoke.REC_CASES``' SSD step and scan
+(``ops.race_split``), the unkeyed tournament at
+``chip_smoke.TOURNAMENT_SHAPES`` and the unkeyed verify at
+``chip_smoke.SPEC_VERIFY_SHAPES`` in the wrappers' launch shapes
+(``ops.tournament_shape``, ``ops.spec_verify_split``),
+``chip_smoke.REC_CASES``' SSD step and scan
 cases (float32) and its ``ssd`` and ``wkv`` cases that the tiled kernel
 takes (float32 and bfloat16),
 and prints one JSON line per case: the span of the launch, the median
@@ -23,9 +28,10 @@ life of a block, the quartiles of the blocks' start times (how many
 waves), and the median time between consecutive marks; for ``ssd`` and
 ``wkv``, which loop over chunks or tiles, the median time of each phase
 summed over the loop (kept in thread 0's registers, written once at the
-end).  The traced copies only add the marks: their outputs must equal the
-product kernels' bit for bit, and the script fails otherwise, or if a
-mark's anchor is no longer in the source.
+end), and so for the unkeyed tournament's phases over its rounds.  The
+traced copies only add the marks: their outputs must equal the product
+kernels' bit for bit, and the script fails otherwise, or if a mark's
+anchor is no longer in the source.
 """
 from __future__ import annotations
 
@@ -153,6 +159,53 @@ GUMBEL_PHASES = {0: ["the segment's entries", "the shuffle argmax"],
 GUMBEL_CLUSTER_PHASES = ["the slice: loads, hashes, logs, divisions",
                          "block argmax, cluster barrier's wait, merge at "
                          "member 0"]
+# the unkeyed tournament's register kernels (csrc/tournament.cu): rows in
+# warp segments and rows over a cluster, each a loop over the m rounds
+# (ACC slots sum each phase over the rounds)
+TOURNAMENT_U_MARKS = [
+    ("TRACE_START();\n", "  const int lane = (int)(gt & (width - 1));\n"),
+    ("ACC(1);\n", "    p[k] = b < B && w < V ? src[w] : 0.f;\n  }\n"),
+    ("ACC(2);\n", "      if (word >> 31) mass += p[k];\n    }\n"),
+    ("ACC(3);\n", "      if (o < width) mass += __shfl_xor_sync(0xffffffffu, "
+     "mass, o);\n"),
+    ("ACC(4);\n", "    for (int k = 0; k < PER; ++k) p[k] = p[k] * "
+     "(tu_bit<PER>(g, k) ? f1 : f0);\n"),
+    ("TRACE_END();\n", "    if (w < V) dst[w] = p[k];\n  }\n"),
+    ("TRACE_START();\n",
+     "  const long long b0 = (long long)(blockIdx.x / C) * R;\n"),
+    ("ACC(1);\n", "      if (word >> 31) part[r] += p[r][k];\n    }\n"
+     "  }\n"),
+    ("ACC(2);\n", "    if (tid == 0) ct_mbar_expect(ct_smem(&sh.mbar[l & 1]), "
+     "4 * C * R);\n"),
+    ("ACC(3);\n", "          gn[r] = __funnelshift_l(tu_word(sx[r], y), gn[r], "
+     "1);\n      }\n    }\n"),
+    ("ACC(4);\n", "    while (!ct_mbar_try(ct_smem(&sh.mbar[l & 1]), "
+     "(l >> 1) & 1)) {\n    }\n"),
+    ("ACC(5);\n", "      g[r] = gn[r];\n    }\n"),
+    ("TRACE_END();\n", "      if (w < hi) dst[w] = p[r][k];\n    }\n  }\n"),
+]
+TOURNAMENT_U_PHASES = {
+    "cluster": ["loads, mbarrier set-up, cluster barrier, round 0's bits",
+                "the block reduction and the send (st.async)",
+                "hashing the next round's bits",
+                "the exchange: waiting for the members' partials",
+                "the mass (C partials) and the update"],
+    "segments": ["loads", "hashing and the lane's mass",
+                 "the segment's butterfly", "the update"]}
+# the unkeyed verify (csrc/spec_verify.cu)
+SPEC_VERIFY_MARKS = [
+    (0, "  const int rank = blockIdx.x % C;\n"),
+    (1, "  const int n = sv_accept(p, q, tokens, u, b, K, V, rank == 0, "
+        "n_acc, prefix);\n"),
+    (2, "  race_slice(p + row * V, q + row * V, lo, hi, seed, best, bi);\n"),
+    (3, "  block_argmax(best, bi);\n"),
+    (4, "    bi = cluster_merge(best, bi, s_best, s_idx);\n  }\n"),
+]
+SPEC_VERIFY_PHASES = ["accept test (warp 0's gathers and ballot), the "
+                      "slot's seed",
+                      "the slice: loads, hashes, logs, divisions",
+                      "block argmax",
+                      "cluster barrier's wait, merge at member 0"]
 SSD_MARKS = [
     (0, "  const size_t bR = (size_t)b * HD;\n"),
     (1, "  for (int t = 0; t < SSD_STAGES - 1; ++t) issue(t);\n"),
@@ -257,6 +310,7 @@ def build_traced(name: str, source: Path, marks, header=None,
     lib = ctypes.CDLL(str(so))
     for fn in ("paged_attention_launch", "tournament_keyed_launch",
                "spec_verify_wm_launch", "gumbel_argmax_launch",
+               "tournament_launch", "spec_verify_launch",
                "ssd_step_launch", "ssd_launch", "wkv_launch"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = build.SIGNATURES[fn]
@@ -345,6 +399,7 @@ def main() -> int:
                               **report(tk, 8 * B, TOURNAMENT_PHASES))))
     trace_tail(cs, ops)
     trace_gumbel(cs, ops)
+    trace_unkeyed(cs, ops)
     trace_ssd(cs, ops)
     trace_sequence(cs, ops)
     return 0
@@ -411,6 +466,54 @@ def trace_gumbel(cs, ops):
         print(json.dumps(dict(kernel="gumbel_argmax", case=f"B={B} V={V}",
                               split=split,
                               **report(ga, n_blocks, phases))))
+
+
+def trace_unkeyed(cs, ops):
+    """The unkeyed tournament at every phase 2 shape and the unkeyed
+    verify at every phase 2 shape, in the wrappers' launch shapes."""
+    import torch
+    tu = build_traced("tournament_traced", CSRC / "tournament.cu",
+                      TOURNAMENT_U_MARKS,
+                      decl_after='#include "cluster_tournament.cuh"\n')
+    for B, V in cs.TOURNAMENT_SHAPES:
+        probs, seeds = cs.tournament_unkeyed_inputs(B, V)
+        want = ops.tournament(probs, seeds, m=30)
+        got = torch.empty_like(want)
+        C, NT = ops.tournament_shape(V)
+        R = ops.tournament_rows(B, V)
+        rc = tu.tournament_launch(ops._ptr(probs), ops._ptr(seeds), B, V, V,
+                                  30, NT, R, ops._ptr(got),
+                                  ops._stream(probs))
+        torch.cuda.synchronize()
+        if rc or not torch.equal(got, want):
+            raise SystemExit(f"kernel_trace: traced tournament B={B} V={V} "
+                             "differs")
+        if C == 0:                              # NT: lanes a segment
+            n_blocks, kind = -(-(-(-B // R)) * NT // 256), "segments"
+        else:
+            n_blocks, kind = -(-B // R) * C, "cluster"
+        print(json.dumps(dict(
+            kernel="tournament", case=f"B={B} V={V}", shape=[C, NT, R],
+            **report_loop(tu, n_blocks, TOURNAMENT_U_PHASES[kind]))))
+        del want, got
+    sv = build_traced("spec_verify_traced", CSRC / "spec_verify.cu",
+                      SPEC_VERIFY_MARKS,
+                      decl_after='#include "cluster_tournament.cuh"\n')
+    for B, K, V in cs.SPEC_VERIFY_SHAPES:
+        args = cs.spec_verify_unkeyed_inputs(B, K, V)
+        want = ops.spec_verify(*args)
+        got = [torch.empty_like(w) for w in want]
+        split = ops.spec_verify_split(B, V)
+        rc = sv.spec_verify_launch(*(ops._ptr(x) for x in args), B, K, V,
+                                   split, *(ops._ptr(x) for x in got),
+                                   ops._stream(args[0]))
+        torch.cuda.synchronize()
+        if rc or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"kernel_trace: traced spec_verify B={B} K={K} "
+                             f"V={V} differs")
+        print(json.dumps(dict(kernel="spec_verify", case=f"B={B} K={K} V={V}",
+                              split=split,
+                              **report(sv, B * split, SPEC_VERIFY_PHASES))))
 
 
 def trace_ssd(cs, ops):

@@ -28,9 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "gumbel_argmax_launch": [_P, _P, _I, _I, _I, _P, _P, _P],
-    "tournament_launch": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tournament_launch": [_P, _P] + [_I] * 6 + [_P, _P],
     "tournament_keyed_launch": [_P, _P, _P, _I, _I, _I, _U, _P, _P, _P],
-    "spec_verify_launch": [_P] * 5 + [_I] * 3 + [_P] * 5,
+    "spec_verify_launch": [_P] * 5 + [_I] * 4 + [_P] * 5,
     "spec_verify_wm_launch": [_P] * 13 + [_I] * 7 + [_U] * 4 + [_P],
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
     "wkv_step_launch": [_P] * 8 + [_I] * 4 + [_P],

@@ -24,11 +24,12 @@
 // sums depend only on V, C and blockDim.x, never on the number of rows or
 // the SM count.
 //
-// Used by tournament_keyed.cu and by spec_verify_wm.cu's tournament
-// branch (with cluster_sum for the normalisation and cluster_race for the
-// draw); tournament.cu still runs block_tournament (prf.cuh), one block
-// per row.  The Gumbel races of gumbel_argmax.cu and of spec_verify_wm.cu's
-// race branch split a row over a cluster too: race_slice races a slice
+// Used by tournament_keyed.cu, by spec_verify_wm.cu's tournament branch
+// (with cluster_sum for the normalisation and cluster_race for the draw)
+// and by tournament.cu for slices past its registers (tournament.cu keeps
+// a slice in registers otherwise, with the same exchange).  The Gumbel
+// races of gumbel_argmax.cu, spec_verify.cu and spec_verify_wm.cu's race
+// branch split a row over a cluster too: race_slice races a slice
 // straight from global memory and cluster_merge takes the members'
 // winners to member 0; ct_launch launches any of these kernels.
 #pragma once

@@ -93,25 +93,6 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// m SynthID tournament rounds in place over row[0, V) with g-seed `seed`:
-// p <- p * ((1 + g) - sum(p * g)), g = gbit(seed, w + V*l).  Each thread
-// owns the same strided lanes in every pass, so the rows need no barrier
-// beyond the ones inside block_sum.
-__device__ __forceinline__ void block_tournament(float *row, int V, int m,
-                                                 uint32_t seed) {
-  for (int l = 0; l < m; ++l) {
-    const uint32_t off = (uint32_t)V * (uint32_t)l;
-    float part = 0.f;
-    for (int w = threadIdx.x; w < V; w += blockDim.x)
-      part += row[w] * prf_gbit(seed, (uint32_t)w + off);
-    const float mass = block_sum(part);
-    for (int w = threadIdx.x; w < V; w += blockDim.x) {
-      const float g = prf_gbit(seed, (uint32_t)w + off);
-      row[w] = row[w] * ((1.0f + g) - mass);
-    }
-  }
-}
-
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel k, int bytes) {

@@ -59,6 +59,25 @@ SSD_MAX_N = 1024
 # and lost at 8 rows), else one block a row
 RACE_SEG_MAX_V = 1024
 RACE_SPLITS = ((4, 16), (8, 8))
+# the unkeyed tournament's launch shape (csrc/tournament.cu): from V
+# alone, so a row's sums and floats are the same at any B, rows up to
+# TOURNAMENT_SEG_MAX_V entries in segments of a warp whose lanes hold up to
+# TOURNAMENT_SEG_PER entries each (at most 32 lanes), wider ones over a
+# cluster of TOURNAMENT_CLUSTER blocks (the kernel's TU_SEG_MAX_V and
+# TU_CLUSTER hold the same two numbers) whose threads hold about
+# TOURNAMENT_PER entries of the block's slice each (at most
+# TOURNAMENT_THREADS threads, then up to 8 entries a thread, then 1024
+# threads over a slice in shared memory); from B, the rows a cluster holds
+# at once, which no row's sums depend on: one up to TOURNAMENT_ONE_ROW_B
+# rows in the batch (the micro-benchmark's 4 and 8), else
+# TOURNAMENT_ROWS (the measures' Monte Carlo; segments hold one)
+TOURNAMENT_SEG_MAX_V = 1024
+TOURNAMENT_SEG_PER = 2
+TOURNAMENT_CLUSTER = 8
+TOURNAMENT_PER = 4
+TOURNAMENT_THREADS = 512
+TOURNAMENT_ONE_ROW_B = 8
+TOURNAMENT_ROWS = 4
 
 LAUNCHES: Dict[str, int] = {"spec_verify_wm": 0,
                             "spec_verify_wm_tournament": 0,
@@ -86,12 +105,16 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
-def _arg(t: torch.Tensor, dtype: torch.dtype, shape, name: str):
+def _checked(t: torch.Tensor, dtype: torch.dtype, shape, name: str):
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    return t.contiguous()
+    return t
+
+
+def _arg(t: torch.Tensor, dtype: torch.dtype, shape, name: str):
+    return _checked(t, dtype, shape, name).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -136,18 +159,51 @@ def race_split(B: int, V: int) -> int:
 
 def tournament(probs: torch.Tensor, seeds: torch.Tensor, *, m: int):
     """m SynthID rounds per (B, V) f32 row (not normalised here) with the
-    row's host seed (B,) int64 word -> the distribution (B, V) f32."""
+    row's host seed (B,) int64 word -> the distribution (B, V) f32.  On
+    the card, one row expanded to (B, V) (row stride 0) is read as it is,
+    without a copy; any other layout is made contiguous."""
     if not _on_cuda(probs, seeds):
         return ref.tournament_ref(probs, seeds, m=m)
     B, V = probs.shape
-    probs = _arg(probs, torch.float32, (B, V), "probs")
+    probs = _checked(probs, torch.float32, (B, V), "probs")
+    if B > 1 and probs.stride(0) == 0 and (probs.stride(1) == 1 or V == 1):
+        row_stride = 0
+    else:
+        probs, row_stride = probs.contiguous(), V
     seeds = _arg(seeds, torch.int64, (B,), "seeds")
-    out = torch.empty_like(probs)
-    smem = 4 * V if 4 * V <= SMEM_ROW_MAX else 0
+    out = torch.empty((B, V), dtype=torch.float32, device=probs.device)
     rc = build.load().tournament_launch(
-        _ptr(probs), _ptr(seeds), B, V, m, smem, _ptr(out), _stream(probs))
+        _ptr(probs), _ptr(seeds), B, V, row_stride, m, tournament_shape(V)[1],
+        tournament_rows(B, V), _ptr(out), _stream(probs))
     _launched("tournament", rc)
     return out
+
+
+def tournament_shape(V: int):
+    """The unkeyed tournament's launch shape for rows of V entries, from V
+    alone (it fixes every row's sum order): (0, lanes a segment) for rows
+    in segments of a warp, else (the blocks of a row's cluster, threads a
+    block)."""
+    if V <= TOURNAMENT_SEG_MAX_V:
+        lanes = 1 << max(0, -(-V // TOURNAMENT_SEG_PER) - 1).bit_length()
+        return 0, min(32, lanes)
+    per_block = -(-V // TOURNAMENT_CLUSTER)
+    threads = (-(-per_block // TOURNAMENT_PER) + 31) // 32 * 32
+    if threads <= TOURNAMENT_THREADS:
+        return TOURNAMENT_CLUSTER, threads
+    if per_block <= 8 * TOURNAMENT_THREADS:
+        return TOURNAMENT_CLUSTER, TOURNAMENT_THREADS
+    return TOURNAMENT_CLUSTER, 1024
+
+
+def tournament_rows(B: int, V: int) -> int:
+    """The rows a cluster of the unkeyed tournament holds at once in a
+    batch of B rows of V entries (they share the counters' hashes and each
+    round's exchange; rows in segments take one at a time); no row's
+    floats depend on it."""
+    if V <= TOURNAMENT_SEG_MAX_V or B <= TOURNAMENT_ONE_ROW_B:
+        return 1
+    return TOURNAMENT_ROWS
 
 
 def tournament_keyed(probs: torch.Tensor, keys: torch.Tensor,
@@ -193,9 +249,18 @@ def spec_verify(p, q, tokens, u, resid_seeds):
     ru = torch.empty(B, dtype=torch.float32, device=dev)
     rc = build.load().spec_verify_launch(
         _ptr(p), _ptr(q), _ptr(tokens), _ptr(u), _ptr(resid_seeds), B, K, V,
-        _ptr(n_acc), _ptr(prefix), _ptr(rtok), _ptr(ru), _stream(p))
+        spec_verify_split(B, V), _ptr(n_acc), _ptr(prefix), _ptr(rtok),
+        _ptr(ru), _stream(p))
     _launched("spec_verify", rc)
     return n_acc, prefix, rtok, ru
+
+
+def spec_verify_split(B: int, V: int) -> int:
+    """The unkeyed verify's launch shape for B rows of V entries: the
+    blocks that race one row (a cluster when above 1), the Gumbel race's
+    ``race_split`` with one block a row where that races in segments of a
+    warp.  Every split gives the same tokens and U bit for bit."""
+    return race_split(B, V) or 1
 
 
 def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,

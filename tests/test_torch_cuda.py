@@ -552,7 +552,7 @@ def test_spec_verify_wm_tournament_serving_batch_matches_plain(cuda, V):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,V", [(4, 32000), (8, 4096), (2048, 10),
-                                 (2, 256128)])
+                                 (2, 256128), (1, 32000), (16384, 32000)])
 def test_tournament_matches_plain_version(cuda, B, V):
     g = torch.Generator(device=cuda).manual_seed(B + V)
     probs = torch.softmax(torch.randn((B, V), generator=g, device=cuda) * 3,
@@ -565,26 +565,70 @@ def test_tournament_matches_plain_version(cuda, B, V):
     want = ref.tournament_ref(probs, seeds, m=30)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-7)
     # fewer rounds or another seed row is far outside that tolerance (a
-    # 10-entry row may have collapsed to a fixed point by round 29)
-    for bad in (ref.tournament_ref(probs, seeds, m=29),
-                ref.tournament_ref(probs, seeds.roll(1), m=30)):
-        assert V < 4096 or not torch.allclose(got, bad, rtol=1e-4,
-                                              atol=1e-7)
+    # 10-entry row may have collapsed to a fixed point by round 29; a
+    # single row has no other seed row to take)
+    bad = [ref.tournament_ref(probs, seeds, m=29)]
+    if B > 1:
+        bad.append(ref.tournament_ref(probs, seeds.roll(1), m=30))
+    for x in bad:
+        assert V < 4096 or not torch.allclose(got, x, rtol=1e-4, atol=1e-7)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,K,V", [(4, 4, 32000), (8, 4, 4096), (3, 1, 96)])
-def test_spec_verify_matches_plain_version(cuda, B, K, V):
-    g = torch.Generator(device=cuda).manual_seed(B * K + V)
-    lp = torch.randn((B, K, V), generator=g, device=cuda) * 3
+@pytest.mark.parametrize("V", [10, 96, 4096, 32000, 256128])
+def test_tournament_launch_shapes_agree(cuda, V):
+    """The same rows give the same floats at every B (the launch shape
+    comes from V alone): the first rows of a batch run as batches of 1, 3,
+    8 (a row a cluster) and 9 (4 rows a cluster, the last cluster part
+    empty) equal it bit for bit, and one row expanded to (n, V) (read at
+    row stride 0, not copied) equals its contiguous copy."""
+    n = 2048 if V <= 32000 else 16
+    g = torch.Generator(device=cuda).manual_seed(V + 7)
+    probs = torch.softmax(torch.randn((n, V), generator=g, device=cuda) * 3,
+                          -1)
+    seeds = torch.randint(0, 2**32, (n,), generator=g, device=cuda)
+    ops.reset_launches()
+    batch = ops.tournament(probs, seeds, m=30)
+    for B in (1, 3, 8, 9):
+        assert torch.equal(ops.tournament(probs[:B], seeds[:B], m=30),
+                           batch[:B]), B
+    one = probs[5].expand(n, V)
+    assert one.stride(0) == 0
+    got = ops.tournament(one, seeds, m=30)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["tournament"] == 6
+    assert torch.equal(got, ops.tournament(one.contiguous(), seeds, m=30))
+    assert torch.equal(got[5], batch[5])
+
+
+def _spec_verify_inputs(B, K, V, dev, seed):
+    """p, q (B, K, V), drafts from q, coins (row 0 accepts every draft) and
+    seed words; the last row (B >= 2) has p = q, so it accepts every draft
+    and races an all-zero residual (token 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.randn((B, K, V), generator=g, device=dev) * 3
     p = torch.softmax(lp, -1)
-    q = torch.softmax(lp + torch.randn((B, K, V), generator=g, device=cuda),
+    q = torch.softmax(lp + torch.randn((B, K, V), generator=g, device=dev),
                       -1)
+    if B >= 2:
+        p[-1] = q[-1]
     toks = torch.multinomial(q.reshape(B * K, V), 1,
                              generator=g).reshape(B, K)
-    u = torch.rand((B, K), generator=g, device=cuda)
+    u = torch.rand((B, K), generator=g, device=dev)
     u[0] = 0.0                       # all accepted: slot K-1 still races
-    seeds = torch.randint(0, 2**32, (B, K), generator=g, device=cuda)
+    seeds = torch.randint(0, 2**32, (B, K), generator=g, device=dev)
+    return p, q, toks, u, seeds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,V", [(4, 4, 32000), (8, 4, 4096), (3, 1, 96),
+                                   (1, 4, 32000), (64, 4, 32000),
+                                   (4, 4, 256128), (4, 1, 32000)])
+def test_spec_verify_matches_plain_version(cuda, B, K, V):
+    """n_acc and the prefix bitwise, the token equal outside margin rows,
+    U on equal tokens; a p = q row gives token 0; rows alone equal
+    themselves in the batch, bit for bit."""
+    p, q, toks, u, seeds = _spec_verify_inputs(B, K, V, cuda, B * K + V)
     ops.reset_launches()
     nk, pk, tk, uk = ops.spec_verify(p, q, toks, u, seeds)
     torch.cuda.synchronize()
@@ -599,6 +643,13 @@ def test_spec_verify_matches_plain_version(cuda, B, K, V):
     same = tk == tr
     assert bool((same | (marg < MARGIN)).all())
     assert torch.equal(uk[same], ur[same])
+    if B >= 2:
+        assert int(nk[-1]) == K and int(tk[-1]) == 0
+    for b in sorted({0, B // 2, B - 1}):
+        alone = ops.spec_verify(p[b:b + 1], q[b:b + 1], toks[b:b + 1],
+                                u[b:b + 1], seeds[b:b + 1])
+        assert all(torch.equal(x[0], w[b])
+                   for x, w in zip(alone, (nk, pk, tk, uk))), b
 
 
 @pytest.mark.gpu

@@ -108,6 +108,10 @@ def test_tournament_matches_interpreted_kernel(V):
     assert ops.LAUNCHES["tournament"] == 0          # the plain version
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+    # on the card such a row runs in a segment of a warp, whose lanes
+    # hold at most 32 entries each (csrc/tournament.cu)
+    C, lanes = ops.tournament_shape(V)
+    assert C == 0 and lanes <= 32 and -(-V // lanes) <= 32
 
 
 # ---------------------------------------------------------------------------
