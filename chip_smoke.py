@@ -85,7 +85,18 @@ Phases, each fatal on failure, in this order:
      against the CPU; detection records and scores of a TINY generate
      against the CPU's (AUCs printed, not gated); the micro-benchmark's
      calls of the race, the unkeyed tournament and the unkeyed verify;
-     launch counts of each path.
+     launch counts of each path;
+  6. training (after the 7B target is freed): the differentiable
+     recurrences' gradients (the kernel forward, the plain version
+     replayed backward) against autograd through the plain versions at
+     rwkv6-3b's and zamba2-1.2b's layer shapes (B=2, S=256; the scan at
+     S=64), within ref.replay_grad_tol; zamba2-1.2b at full width in fp32,
+     3 train steps at B=2, S=256 (losses and gradient norms finite, every
+     parameter moved, 38 ssd launches a step; ms per step, tokens/s, peak
+     memory); 5 fit steps of the yi-6b, rwkv6-3b and zamba2-1.2b smoke
+     configs on the card against the CPU, each loss within
+     TRAIN_LOSS_RTOL; benchmarks/common.py's pair trained 300 steps (the
+     loss must fall) and its Gumbel K=4 AATPS beside the untrained pair's.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -94,6 +105,7 @@ or no repro_torch package beside it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2293,6 +2305,297 @@ def phase_measures(target):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: training on the card
+# ---------------------------------------------------------------------------
+
+# zamba2-1.2b at full width (as recurrent_drafts() builds it: ssm.chunk 128,
+# vocab 32000) in float32, the type the reference's fit trains in; S = 256
+# puts each layer's forward through ssd over two chunks
+TRAIN = dict(B=2, S=256, steps=3)
+# the recurrences' gradients at full-width layer shapes: rwkv6-3b's WKV,
+# zamba2-1.2b's chunked SSD (two chunks of 128) and its per-timestep scan
+TRAIN_GRAD_CASES = (("wkv", dict(B=2, S=256, H=40, hd=64), 0),
+                    ("ssd", dict(B=2, S=256, H=64, hd=64, N=64), 128),
+                    ("ssd_scan", dict(B=2, S=64, H=64, hd=64, N=64), 0))
+# the smoke configs' fit on the card against the CPU
+TRAIN_CPU = dict(archs=("yi-6b", "rwkv6-3b", "zamba2-1.2b"), steps=5, B=2,
+                 S=32, chunk=8, seed=3)
+# each step's loss, card against CPU: AdamW's g / (|g| + eps) turns the
+# last bits of a gradient near 0 into a visible step, and later losses
+# inherit it (tests/test_torch_train.py holds the reference to the same)
+TRAIN_LOSS_RTOL = 1e-4
+# benchmarks/common.py's pair (target_cfg / draft_cfg, its train_pair and
+# tab1_efficiency's Gumbel rows: 400 documents, B=16, S=64, 300 steps;
+# AATPS over 8 prompts of 12 tokens, 48 tokens, K=4, temperature 0.5)
+PAIR_TRAIN = dict(steps=300, B=16, S=64, n_docs=400)
+PAIR_AATPS = dict(B=8, prompt=12, n_tokens=48, K=4, temperature=0.5, key=7)
+
+
+def pair_cfgs():
+    """benchmarks/common.py's target_cfg and draft_cfg: yi-6b's smoke
+    family at V=256, 2 layers of d 128 and 1 layer of d 64."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic
+    V = synthetic.VOCAB
+    return (get_smoke_config("yi-6b", vocab=V, n_layers=2, d_model=128,
+                             d_ff=256, n_heads=4, n_kv_heads=2, head_dim=32),
+            get_smoke_config("yi-6b", vocab=V, n_layers=1, d_model=64,
+                             d_ff=128, n_heads=2, n_kv_heads=2, head_dim=32))
+
+
+def train_grads():
+    """The differentiable recurrences (ops.Replay: the kernel forward, the
+    plain version replayed backward) against autograd straight through
+    the plain version, at the full-width layer shapes: every input's
+    gradient of Σ y² + Σ state² within ref.replay_grad_tol (the chunked
+    kernel's output tolerance against the per-timestep replay: the larger
+    of ssd_tol at its chunk and at 0).  One kernel launch each."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    for kernel, shape, chunk in TRAIN_GRAD_CASES:
+        args = rec_inputs(kernel, shape, torch.float32, seed=sum(
+            shape.values()))
+        op = {"wkv": ops.wkv, "ssd_scan": ops.ssd_scan,
+              "ssd": lambda *a: ops.ssd(*a, chunk=chunk)}[kernel]
+        plain = ref.wkv_ref if kernel == "wkv" else ref.ssd_ref
+
+        def grads(fn):
+            xs = [a.clone().requires_grad_() for a in args]
+            y, st = fn(*xs)
+            return (y.detach(), st.detach()), torch.autograd.grad(
+                (y ** 2).sum() + (st ** 2).sum(), xs)
+
+        (outs, got), secs, launches = run_counted(lambda: grads(op))
+        counted = REC_KERNEL.get(kernel, kernel)
+        check(launches[counted] == 1 and sum(launches.values()) == 1,
+              f"train grads {kernel}: launches {launches}")
+        (_, want), plain_secs, _ = run_counted(lambda: grads(plain))
+        tols = ref.wkv_tol(*args) if kernel == "wkv" else [
+            torch.maximum(a, b) for a, b in zip(
+                ref.ssd_tol(*args, chunk=chunk), ref.ssd_tol(*args))]
+        bound = ref.replay_grad_tol(kernel, args, outs, tols)
+        ratios = []
+        for i, (g, w, b) in enumerate(zip(got, want, bound)):
+            check(bool(torch.isfinite(g).all()),
+                  f"train grads {kernel}: input {i} not finite")
+            ratios.append(float(((g - w).abs() / b).max()))
+            check(ratios[-1] <= 1.0, f"train grads {kernel}: input {i} "
+                  f"{ratios[-1]:.3g} of its bound")
+        out[kernel] = dict(shape=shape, err_over_tol=max(ratios),
+                           max_abs_err=max(float((g - w).abs().max())
+                                           for g, w in zip(got, want)),
+                           seconds=secs, plain_seconds=plain_secs)
+        print(f"train grads {kernel} {shape}: within "
+              f"{max(ratios):.3g} of ref.replay_grad_tol; "
+              f"{secs:.2f} s (plain autograd {plain_secs:.2f} s)")
+    return out
+
+
+def train_full_width():
+    """zamba2-1.2b at full width in float32 (random weights, seed 6): 3
+    make_train_step steps at B=2, S=256 on synthetic batches.  Every loss
+    and gradient norm finite, every parameter moved, ssd launched once a
+    layer a step.  -> (launch counts, results)."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as TT
+    cfg = recurrent_drafts()["zamba2"]
+    B, S, steps = TRAIN["B"], TRAIN["S"], TRAIN["steps"]
+    check(cfg.ssm.chunk < S, f"S={S} must pass the chunk {cfg.ssm.chunk}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()       # held by earlier phases
+    model = init_params(cfg, seed=6, device=DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = adamw.AdamWConfig(total_steps=steps, warmup_steps=20)
+    opt_state = adamw.init(dict(model.named_parameters()))
+    step = TT.make_train_step(cfg, opt_cfg)
+    before = {n: p.detach().flatten()[:4096].clone()
+              for n, p in model.named_parameters()}
+    stream = synthetic.token_stream(synthetic.SyntheticCorpus(), 300)
+    it = synthetic.batches(stream, B, S, seed=0)
+    batches = [{"tokens": torch.as_tensor(next(it)["tokens"],
+                                          dtype=torch.int64, device=DEV)}
+               for _ in range(steps)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    step_ms, metrics = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm")),
+              f"train zamba2-1.2b step {i}: {m}")
+    moved = sum(not torch.equal(before[n], p.detach().flatten()[:4096])
+                for n, p in model.named_parameters())
+    check(moved == len(before), f"train zamba2-1.2b: {moved} of "
+          f"{len(before)} parameters moved")
+    check(counts["ssd"] == cfg.n_layers * steps and counts["ssd_scalar"] == 0,
+          f"train zamba2-1.2b: ssd launches {counts['ssd']}, want "
+          f"{cfg.n_layers} a step (tiled) over {steps} steps")
+    # where a step's time goes, one more step in its three parts: the
+    # forward (ssd kernels), the backward (the per-timestep replay), AdamW
+    params = dict(model.named_parameters())
+    split = {}
+    t = time.perf_counter()
+    loss, _ = TT.lm_loss(model, batches[-1])
+    torch.cuda.synchronize()
+    split["forward_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    split["backward_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    adamw.apply(opt_cfg, params, dict(zip(params, grads)), opt_state)
+    torch.cuda.synchronize()
+    split["update_ms"] = (time.perf_counter() - t) * 1e3
+    del loss, grads
+    res = dict(n_params=n_params, B=B, S=S, steps=steps, step_ms=step_ms,
+               split=split,
+               tokens_per_s=[B * S / (ms / 1e3) for ms in step_ms],
+               peak_bytes=peak, bytes_per_param=peak / n_params,
+               bytes_held_before=base,
+               losses=[m["loss"] for m in metrics],
+               grad_norms=[m["grad_norm"] for m in metrics],
+               ssd_launches_per_step=counts["ssd"] / steps)
+    print(f"train zamba2-1.2b (full width, fp32, {n_params:,} params, B={B}, "
+          f"S={S}): ms/step {[round(x, 1) for x in step_ms]}, tokens/s "
+          f"{[round(x, 1) for x in res['tokens_per_s']]}, peak "
+          f"{peak / 2**30:.2f} GiB ({peak / n_params:.1f} B/param), losses "
+          f"{res['losses']}, grad norms {res['grad_norms']}, ssd launches "
+          f"{counts['ssd']}; one more step in parts (ms): "
+          f"{ {k: round(v, 1) for k, v in split.items()} }")
+    del model, opt_state, step
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def train_card_vs_cpu():
+    """The smoke configs of yi-6b, rwkv6-3b and zamba2-1.2b (ssm.chunk 8,
+    S=32: the ssd kernel over 4 chunks) in float32 from the same weights
+    and batches: TRAIN_CPU["steps"] fit steps on the CPU (plain versions)
+    and on the card (kernels), each step's loss within TRAIN_LOSS_RTOL.
+    -> (launch counts by path, the largest relative loss difference)."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.model import init_params
+    from repro_torch.train import loop as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stream = synthetic.token_stream(synthetic.SyntheticCorpus(), 60)
+    c = TRAIN_CPU
+    counts, worst = {}, {}
+    for arch in c["archs"]:
+        cfg = get_smoke_config(arch, vocab=synthetic.VOCAB)
+        if cfg.ssm is not None and cfg.ssm.kind == "mamba2":
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, chunk=c["chunk"]))
+        tree = convert.to_jax_tree(init_params(cfg, seed=c["seed"],
+                                               device="cpu"))
+
+        def fit(dev):
+            return TT.fit(cfg, synthetic.batches(stream, c["B"], c["S"],
+                                                 seed=c["seed"]),
+                          steps=c["steps"], params=tree, device=dev,
+                          verbose=False)[1]
+
+        want = fit("cpu")
+        got, _, launches = run_counted(lambda: fit(DEV))
+        path = f"train card vs CPU {cfg.name}"
+        counts[path] = launches
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        worst[cfg.name] = max(rel)
+        check(max(rel) <= TRAIN_LOSS_RTOL, f"{path}: losses {got} against "
+              f"{want}")
+        print(f"{path}: losses card {got} cpu {want}, max rel "
+              f"{max(rel):.3g}, launches wkv {launches['wkv']} ssd "
+              f"{launches['ssd']} ssd_step {launches['ssd_step']}")
+    for path, kernel in (("rwkv6-3b-smoke", "wkv"),
+                         ("zamba2-1.2b-smoke", "ssd")):
+        n = counts[f"train card vs CPU {path}"][kernel]
+        check(n == 2 * c["steps"], f"{path}: {kernel} launches {n}")
+    return counts, worst
+
+
+def train_pair():
+    """benchmarks/common.py's pair trained on the card (fit, 300 steps at
+    B=16, S=64: the target from seed 0 on batches of seed 0, the draft
+    from seed 1 on batches of seed 1); the loss must fall, as
+    examples/train_multiarch.py asserts.  Then Gumbel K=4 AATPS of the
+    untrained and the trained pair (printed, not gated).  -> (launch counts
+    of the trained pair's generate, results)."""
+    import numpy as np
+    from repro_torch.data import synthetic
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine as E
+    from repro_torch.train import loop as TT
+    tcfg, dcfg = pair_cfgs()
+    cp = synthetic.SyntheticCorpus()
+    stream = synthetic.token_stream(cp, PAIR_TRAIN["n_docs"])
+    B, S, steps = PAIR_TRAIN["B"], PAIR_TRAIN["S"], PAIR_TRAIN["steps"]
+    res, trained = {}, []
+    for name, cfg, seed in (("target", tcfg, 0), ("draft", dcfg, 1)):
+        t = time.perf_counter()
+        model, hist = TT.fit(cfg, synthetic.batches(stream, B, S, seed=seed),
+                             steps=steps, seed=seed, device=DEV,
+                             verbose=False)
+        secs = time.perf_counter() - t
+        check(hist[-1] < hist[0], f"train pair {name}: loss {hist[0]} -> "
+              f"{hist[-1]} did not fall")
+        res[name] = dict(first_loss=hist[0], last_loss=hist[-1],
+                         seconds=secs, ms_per_step=secs / steps * 1e3)
+        print(f"train pair {name} ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}): loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
+              f"{steps} steps, {secs:.1f} s")
+        trained.append(model)
+    a = PAIR_AATPS
+    rows = []
+    for p in synthetic.prompts(cp, a["B"], prompt_words=3, seed=5):
+        p = p[:a["prompt"]]
+        rows.append(np.concatenate([np.full(a["prompt"] - len(p),
+                                            synthetic.PAD, np.int32), p]))
+    prompts = np.stack(rows)
+    scfg = E.SpecConfig(K=a["K"], watermark="gumbel",
+                        temperature=a["temperature"])
+    untrained = [init_params(tcfg, seed=0, device=DEV),
+                 init_params(dcfg, seed=1, device=DEV)]
+    r0 = E.generate(*untrained, scfg, prompts, n_tokens=a["n_tokens"],
+                    key=a["key"])
+    r1, _, launches = run_counted(lambda: E.generate(
+        *trained, scfg, prompts, n_tokens=a["n_tokens"], key=a["key"]))
+    res.update(aatps_untrained=r0.aatps, aatps_trained=r1.aatps)
+    print(f"train pair: Gumbel K={a['K']} AATPS untrained {r0.aatps:.4f}, "
+          f"trained {r1.aatps:.4f}")
+    return {"trained pair generate": launches}, res
+
+
+def phase_train():
+    """Training on the card: the recurrences' gradients at full-width
+    layer shapes, zamba2-1.2b's full-width train steps, the smoke configs'
+    fit on the card against the CPU, and the benchmark pair trained.
+    -> (launch counts by path, results)."""
+    counts, res = {}, {}
+    res["grads"] = train_grads()
+    zc, res["zamba2_full_width"] = train_full_width()
+    counts["train zamba2-1.2b"] = zc
+    cc, res["card_vs_cpu_max_rel"] = train_card_vs_cpu()
+    counts.update(cc)
+    pc, res["pair"] = train_pair()
+    counts.update(pc)
+    return counts, res
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = [
@@ -2391,11 +2694,13 @@ def main() -> int:
                                    phase_tiny_serve)
     tiny_rec_margin_rows, tiny_rec_rows, tiny_rec_counts = timed(
         "4c tiny recurrent drafts", phase_tiny_recurrent)
+    train_counts, train_results = timed("6 training", phase_train)
 
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
              **rec_counts, **measure_counts,
-             "ssd scalar-kernel shapes (phase 2c)": scalar_counts}
+             "ssd scalar-kernel shapes (phase 2c)": scalar_counts,
+             **train_counts}
     kernels = []
     for name, source, replaces, case in KERNELS:
         r = by_case[case]
@@ -2421,6 +2726,7 @@ def main() -> int:
                       "tiny_recurrent_margin_rows": tiny_rec_margin_rows,
                       "tiny_recurrent_rows": tiny_rec_rows,
                       "tiny_recurrent_launches": tiny_rec_counts,
+                      "train": train_results,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

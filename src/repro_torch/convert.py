@@ -11,6 +11,10 @@ H, hd), ``attn.wo`` (L, H, hd, d) and ``ffn.{w_in,w_gate}`` (L, d, ff),
 ``embed``/``head``/``ln_out``, flat layer-stacked ``blocks.*`` (RWKV6 or
 Mamba2 leaves) and, for the hybrid, ``shared`` with ``ln_attn`` (n_sites,
 d), ``ln_ffn``, ``attn.*`` and the gelu ``ffn.{w_in, w_out}``.
+
+``to_jax_tree`` goes the other way: a model's weights (or, through
+``as_tree``, any {parameter name: tensor} such as its gradients) as such
+a tree of float32 numpy arrays, the layout ``checkpoint.io`` writes.
 """
 from __future__ import annotations
 
@@ -34,12 +38,60 @@ def _flat(group: Mapping[str, Any]):
     return out
 
 
+# the leaves a transformer block (or the hybrid's shared block) nests
+# under "attn" and "ffn"; no recurrent block has a leaf of these names
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+FFN_LEAVES = ("w_in", "w_gate", "w_out")
+
+
+def _nest(group: Mapping[str, Any]):
+    """{leaf name: array} -> {ln_*, attn: {...}, ffn: {...}, ...}."""
+    out = {}
+    for name, leaf in group.items():
+        sub = ("attn" if name in ATTN_LEAVES else
+               "ffn" if name in FFN_LEAVES else None)
+        if sub is None:
+            out[name] = leaf
+        else:
+            out.setdefault(sub, {})[name] = leaf
+    return out
+
+
+def as_tree(named: Mapping[str, torch.Tensor]) -> dict:
+    """{parameter name: tensor} (``named_parameters()``, or a tensor per
+    parameter such as its gradient) -> the reference's params tree, each
+    leaf a float32 numpy array."""
+    tree, groups = {}, {}
+    for name, t in named.items():
+        arr = t.detach().float().cpu().numpy()
+        top, _, leaf = name.partition(".")
+        if leaf:
+            groups.setdefault(top, {})[leaf] = arr
+        else:
+            tree[top] = arr
+    tree.update({top: _nest(g) for top, g in groups.items()})
+    return tree
+
+
+def to_jax_tree(model: Model) -> dict:
+    """The model's weights as the reference's params tree of float32
+    numpy arrays: the inverse of ``from_jax_tree``."""
+    return as_tree(dict(model.named_parameters()))
+
+
 def from_jax_tree(tree: Mapping[str, Any], cfg: ModelConfig, *,
                   dtype: torch.dtype = torch.float32,
                   device="cuda") -> Model:
     """A ``Transformer`` or ``RecurrentLM`` holding the tree's weights
     (cast to ``dtype``)."""
-    model = init_params(cfg, dtype=dtype, device=device)
+    return assign(init_params(cfg, dtype=dtype, device=device), tree)
+
+
+def assign(model: Model, tree: Mapping[str, Any]) -> Model:
+    """Copy the tree's weights into ``model``'s parameters (in place,
+    cast to their type); the tree must hold exactly the model's leaves,
+    each of its shape, or this raises ValueError."""
+    cfg = model.cfg
     if cfg.tie_embeddings or "head" not in tree:
         raise NotImplementedError("tied embeddings are not ported")
     leaves = {"embed": tree["embed"], "head": tree["head"],
@@ -58,5 +110,6 @@ def from_jax_tree(tree: Mapping[str, Any], cfg: ModelConfig, *,
         if tuple(arr.shape) != tuple(params[name].shape):
             raise ValueError(f"{name}: shape {arr.shape} != "
                              f"{tuple(params[name].shape)}")
-        params[name].data.copy_(torch.from_numpy(arr))
+        with torch.no_grad():
+            params[name].copy_(torch.from_numpy(arr))
     return model

@@ -12,10 +12,16 @@ counts both chunked-scan kernels, and ``ssd_scalar`` the scalar one's
 launches again, so the tiled kernel's are ``ssd`` less ``ssd_scalar``);
 ``reset_launches`` zeroes them, so a caller can show that a run went
 through the kernels.
+
+``wkv``, ``ssd`` and ``ssd_scan`` are differentiable: where autograd
+records, they go through ``Replay``, whose forward is the same dispatch
+(a CUDA tensor still launches the kernel) and whose backward replays the
+per-timestep plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional
 
@@ -358,6 +364,47 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
     return out
 
 
+class Replay(torch.autograd.Function):
+    """A recurrence whose forward is ``fwd`` (the kernel on a CUDA tensor,
+    the plain version on a CPU tensor) and whose backward replays the
+    per-timestep plain version ``plain`` under autograd, as the reference's
+    ``custom_vjp``s (``kernels/wkv.py::_wkv_bwd``,
+    ``kernels/ssd.py::_ssd_bwd``) replay theirs through ``jax.vjp``.  The
+    reference has no backward kernel, so there is none here: the backward
+    keeps one timestep's graph per step, and the recurrence's inputs are
+    the only tensors saved.  Both outputs (y, the final state) take a
+    cotangent or None."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        args = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [a.detach().requires_grad_(n) for a, n in zip(args, need)]
+            outs = ctx.plain(*xs)
+            pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
+            wanted = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [c for _, c in pairs],
+                allow_unused=True) if pairs else [None] * len(wanted))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in need)
+
+
+def _differentiable(fwd, plain, *args):
+    """``fwd(*args)``, through ``Replay`` where autograd must see it."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return Replay.apply(fwd, plain, *args)
+    return fwd(*args)
+
+
 def _rec_type(t: torch.Tensor, name: str) -> torch.dtype:
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 "
@@ -402,7 +449,12 @@ def wkv_step(r, k, v, w, u, s0):
 def wkv(r, k, v, w, u, s0):
     """The WKV recurrence over a sequence: r, k, v, w (B, S, H, hd), u (H,
     hd), s0 (B, H, hd, hd) -> (y (B, S, H, hd) f32, the final state f32).
-    Types as ``wkv_step``."""
+    Types as ``wkv_step``.  Differentiable: the backward replays
+    ``ref.wkv_ref`` (``Replay``)."""
+    return _differentiable(_wkv, ref.wkv_ref, r, k, v, w, u, s0)
+
+
+def _wkv(r, k, v, w, u, s0):
     if not _on_cuda(r, k, v, w, u, s0):
         return ref.wkv_ref(r, k, v, w, u, s0)
     r, k, v, w, u, s0, dtype = _wkv_args("wkv", r, k, v, w, u, s0)
@@ -463,7 +515,12 @@ def ssd_scan(la, dtx, Bf, Cf, h0):
     hd) f32, the final state f32, a new buffer).  A CPU tensor takes
     ``ref.ssd_ref``; on the card the ``ssd_step`` kernel walks the S steps
     in one launch (counted once under ``ssd_step``), and gives bit for
-    bit what S calls of ``ssd_step`` give.  Types as ``ssd_step``."""
+    bit what S calls of ``ssd_step`` give.  Types as ``ssd_step``.
+    Differentiable: the backward replays ``ref.ssd_ref`` (``Replay``)."""
+    return _differentiable(_ssd_scan, ref.ssd_ref, la, dtx, Bf, Cf, h0)
+
+
+def _ssd_scan(la, dtx, Bf, Cf, h0):
     if not _on_cuda(la, dtx, Bf, Cf, h0):
         return ref.ssd_ref(la, dtx, Bf, Cf, h0)
     return _ssd_step_launch("ssd_scan", la, dtx, Bf, Cf, h0)
@@ -474,9 +531,16 @@ def ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
     C (B, S, N), h0 (B, H, hd, N), in chunks of min(chunk, S) tokens, the
     last identity-padded -> (y (B, S, H, hd) f32, the final state f32).
     Types as ``ssd_step``; one chunk must fit a block's shared memory in
-    one of the two kernels' layouts (``ssd_kernel_for``)."""
+    one of the two kernels' layouts (``ssd_kernel_for``).  Differentiable:
+    the backward replays the per-timestep ``ref.ssd_ref`` (``Replay``), as
+    the reference's ``ssd`` replays its ``ssd_ref``."""
     if chunk < 1:
         raise ValueError(f"ssd: chunk {chunk}; the chunked scan needs >= 1")
+    return _differentiable(functools.partial(_ssd, chunk=chunk), ref.ssd_ref,
+                           la, dtx, Bf, Cf, h0)
+
+
+def _ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
     if not _on_cuda(la, dtx, Bf, Cf, h0):
         return ref.ssd_chunked_ref(la, dtx, Bf, Cf, h0, chunk)
     la, dtx, Bf, Cf, h0, dtype = _ssd_args("ssd", la, dtx, Bf, Cf, h0)

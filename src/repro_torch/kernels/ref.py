@@ -404,3 +404,40 @@ def ssd_tol(la, dtx, Bf, Cf, h0, chunk: int = 0):
     extra = nc * (gamma(Lc) + UNIT_ROUNDOFF) * float(lsum)
     D = nc * (N + Lc + hd + 12)
     return _tol(y_env, D, extra), _tol(h_env, D, extra)
+
+
+def replay_grad_tol(kernel: str, args, outs, out_tols):
+    """Per-input bounds on |∇ − ∇'| for the gradients of Σ y² + Σ state²
+    through a recurrence's ``ops.Replay`` (cotangents 2·``outs``, the
+    kernel's outputs) and through its plain version straight (cotangents
+    from outputs within ``out_tols`` of ``outs``: ``wkv_tol`` /
+    ``ssd_tol``).  Both backward passes run the same plain version
+    (``wkv_ref``, or ``ssd_ref`` for ``ssd`` and ``ssd_scan``) on the same
+    inputs, and a gradient is linear in the cotangent, so they differ by
+    the pull-back of a cotangent error of at most 2·tol plus each pass's
+    own roundings.  The recurrences are sums of products with positive
+    decays, so the plain version on the inputs' absolute values (decays as
+    they are) pulls back a nonnegative cotangent to a bound on any
+    cotangent of that size: the bound is that pull-back of 2·tol, plus
+    twice γ_D times the pull-back of 2·(|out| + tol), with D the longest
+    chain of roundings of the reverse pass (twice the forward's: 4S + 2hd
+    + 8 for WKV, 12S + 2N + 4 for SSD)."""
+    S = args[0].shape[1]
+    if kernel == "wkv":
+        r, k, v, w, u, s0 = args
+        plain, env = wkv_ref, (r.abs(), k.abs(), v.abs(), w, u.abs(),
+                               s0.abs())
+        D = 4 * S + 2 * r.shape[-1] + 8
+    else:
+        la, dtx, Bf, Cf, h0 = args
+        plain, env = ssd_ref, (la, dtx.abs(), Bf.abs(), Cf.abs(), h0.abs())
+        D = 12 * S + 2 * Bf.shape[-1] + 4
+    xs = [a.detach().float().requires_grad_() for a in env]
+    with torch.enable_grad():
+        env_outs = plain(*xs)
+        err = torch.autograd.grad(env_outs, xs, [2 * t for t in out_tols],
+                                  retain_graph=True)
+        size = torch.autograd.grad(
+            env_outs, xs, [2 * (o.abs() + t) for o, t in zip(outs, out_tols)])
+    return [e + 2.0 * gamma(D) * z + torch.finfo(torch.float32).tiny
+            for e, z in zip(err, size)]

@@ -1,7 +1,8 @@
 """Layers of the dense transformer — the port of ``repro.models.layers``
-(the functions the dense serving path runs).  Plain PyTorch; weights keep
-the reference's einsum layouts: wq/wk/wv (d, H, hd), wo (H, hd, d),
-w_in/w_gate (d, ff), w_out (ff, d)."""
+(the functions the serving path and the training forward run).  Plain
+PyTorch, differentiable through autograd; weights keep the reference's
+einsum layouts: wq/wk/wv (d, H, hd), wo (H, hd, d), w_in/w_gate (d, ff),
+w_out (ff, d)."""
 from __future__ import annotations
 
 import math
@@ -71,11 +72,91 @@ def _masked_attention(q, k, v, valid):
     return torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
 
 
-def causal_attention(q, k, v):
-    """Prefill attention over one sequence block (full causal, no window)."""
-    S = q.shape[1]
-    pos = torch.arange(S, device=q.device)
-    return _masked_attention(q, k, v, (pos[:, None] >= pos[None, :])[None])
+def attention_full(q, k, v, *, causal=True, window=0):
+    """The reference's naive attention over one sequence block: q (B, Sq,
+    H, hd), k/v (B, Sk, Hkv, hd) -> (B, Sq, H, hd); query i attends to
+    the keys at positions <= i when ``causal`` (and > i - ``window`` when
+    ``window``), to every key otherwise."""
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = torch.ones((1, 1), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = qp >= kp
+        if window:
+            valid = valid & (qp - kp < window)
+    return _masked_attention(q, k, v, valid[None])
+
+
+def _pad_seq(x, mult: int):
+    """Zero-pad axis 1 of x up to a multiple of ``mult``."""
+    pad = (-x.shape[1]) % mult
+    return F.pad(x, (0, 0, 0, 0, 0, pad)) if pad else x
+
+
+def attention_blockwise(q, k, v, *, causal=True, window=0, q_block=512,
+                        kv_block=512, skip_masked_blocks=True):
+    """Flash-attention structure in plain PyTorch (the reference's
+    ``attention_blockwise``): an online softmax over kv blocks, one q
+    block at a time, memory bounded by a block's scores.  With
+    ``skip_masked_blocks`` a q block visits only the kv blocks that meet
+    its causal (and window) band; otherwise every block, masked.
+    Differentiable through autograd."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    n_rep = H // k.shape[2]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Sk)
+    q, k, v = _pad_seq(q, q_block), _pad_seq(k, kv_block), \
+        _pad_seq(v, kv_block)
+    nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
+    scale = 1.0 / math.sqrt(hd)
+    big_neg = -1e30
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * q_block:(qi + 1) * q_block]
+        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        hi = nk
+        lo = 0
+        if skip_masked_blocks and causal:
+            hi = min(nk, (qi * q_block + q_block + kv_block - 1) // kv_block)
+            if window:
+                lo = max(0, (qi * q_block - window) // kv_block)
+        m = torch.full((B, H, q_block), big_neg, device=dev)
+        l_sum = torch.zeros((B, H, q_block), device=dev)
+        acc = torch.zeros((B, H, q_block, hd), device=dev)
+        for kj in range(lo, hi):
+            kblk = k[:, kj * kv_block:(kj + 1) * kv_block]
+            vblk = v[:, kj * kv_block:(kj + 1) * kv_block]
+            s = torch.einsum("bqhk,bshk->bhqs", qblk, kblk).float() * scale
+            kv_pos = kj * kv_block + torch.arange(kv_block, device=dev)
+            valid = kv_pos[None, :] < Sk
+            if causal:
+                valid = valid & (q_pos[:, None] >= kv_pos[None, :])
+                if window:
+                    valid = valid & (q_pos[:, None] - kv_pos[None, :] < window)
+            s = torch.where(valid[None, None], s, big_neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqs,bshk->bhqk", p, vblk.float())
+            m = m_new
+        out = acc / torch.clamp_min(l_sum[..., None], 1e-30)
+        outs.append(out.to(q.dtype).transpose(1, 2))      # (B, qb, H, hd)
+    return torch.cat(outs, 1)[:, :Sq]
+
+
+def attention(q, k, v, *, causal=True, window=0, blockwise_threshold=2048,
+              q_block=512, kv_block=512, skip_masked_blocks=True):
+    """The reference's dispatch: ``attention_full`` while Sq·Sk is within
+    ``blockwise_threshold``², ``attention_blockwise`` beyond."""
+    if q.shape[1] * k.shape[1] <= blockwise_threshold ** 2:
+        return attention_full(q, k, v, causal=causal, window=window)
+    return attention_blockwise(q, k, v, causal=causal, window=window,
+                               q_block=q_block, kv_block=kv_block,
+                               skip_masked_blocks=skip_masked_blocks)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, grouped=False):

@@ -2,6 +2,7 @@
 the ported families (dense, and the recurrent ``ssm`` / ``hybrid``).
 
     model = init_params(cfg, seed=0, dtype=torch.bfloat16)   # on cuda
+    logits, aux = forward(model, {"tokens": tokens})         # training
     logits, cache = model.prefill(tokens, max_seq)
     logits, cache = model.decode_step(token, cache)
     logits, cache = model.extend_step(tokens, cache)
@@ -9,7 +10,7 @@ the ported families (dense, and the recurrent ``ssm`` / ``hybrid``).
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -34,6 +35,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if is_recurrent(cfg):
         return RecurrentLM(cfg, seed=seed, dtype=dtype, device=device)
     return Transformer(cfg, seed=seed, dtype=dtype, device=device)
+
+
+def forward(model: Model, batch: Dict[str, torch.Tensor], *,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of either family: ``batch["tokens"]`` (B, S)
+    -> (logits (B, S, V), aux loss () f32; 0 for the ported families)."""
+    return model.forward(batch["tokens"], remat=remat)
 
 
 def init_paged_cache(model: Model, batch: int, num_pages: int,

@@ -7,8 +7,11 @@
   ``hybrid_attn_every`` layers, with a per-site ``ln_attn`` scale.
 
 ``RecurrentLM`` has the ``Transformer``'s method surface (``cfg``,
-``embed``, ``init_cache``, ``prefill``, ``decode_step``, ``extend_step``),
-so the engine and the scheduler need no arch conditionals.  Weights are
+``embed``, ``forward``, ``init_cache``, ``prefill``, ``decode_step``,
+``extend_step``), so the engine, the scheduler and the trainer need no
+arch conditionals; ``forward`` is the training forward (autograd records
+it, the recurrences through ``ops``' differentiable wrappers), the serving
+methods run under ``torch.no_grad``.  Weights are
 layer-stacked under the reference's names (``blocks.*``; the hybrid's
 ``shared.*`` with ``attn.*``/``ffn.*`` flattened), so ``convert`` copies
 a JAX params tree leaf for leaf.
@@ -37,6 +40,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -164,7 +168,7 @@ class RecurrentLM(nn.Module):
                 for i in range(shape[0]):
                     out[i] = (torch.randn(shape[1:], generator=gen,
                                           device=device) * value).to(dtype)
-            return nn.Parameter(out, requires_grad=False)
+            return nn.Parameter(out)
 
         d, V = cfg.d_model, cfg.vocab
         self.embed = param((V, d), ("normal", 0.02))
@@ -387,7 +391,7 @@ class RecurrentLM(nn.Module):
         h = L.rms_norm(x, sp["ln_attn"][site], self.cfg.rms_eps)
         q, k, v = L.qkv_proj(sp["wq"], sp["wk"], sp["wv"], h, positions,
                              self.cfg.rope_theta)
-        return self._shared_tail(x, L.causal_attention(q, k, v)), k, v
+        return self._shared_tail(x, L.attention(q, k, v)), k, v
 
     def _shared_attn_step(self, x, site: int, k_cache, v_cache, pos):
         """The shared block on one token x (B, d) at per-row positions
@@ -406,6 +410,39 @@ class RecurrentLM(nn.Module):
     def _logits(self, x):
         x = L.rms_norm(x, self.ln_out, self.cfg.rms_eps)
         return torch.einsum("...d,dv->...v", x, self.head)
+
+    def _fresh_block(self, i: int, x):
+        """Layer i over a fresh sequence x (B, S, d) (zero states) -> x."""
+        B = x.shape[0]
+        H, hd, N = self._dims()
+        st0 = torch.zeros((B, H, hd, N), device=x.device)
+        if self._rwkv:
+            return self._rwkv_block_seq(self._layer(i), x, st0)[0]
+        s = self.cfg.ssm
+        conv0 = torch.zeros(
+            (B, s.d_conv - 1, s.expand * self.cfg.d_model + 2 * s.d_state),
+            dtype=x.dtype, device=x.device)
+        return self._mamba_block_seq(self._layer(i), x, conv0, st0)[0]
+
+    def forward(self, tokens: torch.Tensor, *, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (the reference's ``forward``, its
+        ``_forward_with_cache`` without a cache): tokens (B, S) -> (logits
+        (B, S, V), aux 0.0 f32), the hybrid's shared block after the layers
+        ``sites_after`` names.  ``remat`` recomputes each recurrent layer in
+        the backward (``torch.utils.checkpoint``, for ``jax.checkpoint``)."""
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = self.embed[tokens]
+        for i in range(self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._fresh_block, i, x, use_reentrant=False)
+            else:
+                x = self._fresh_block(i, x)
+            site = self._sites[i]
+            if site >= 0:
+                x = self._shared_attn_seq(x, site, positions)[0]
+        return self._logits(x), torch.zeros((), device=tokens.device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_seq: int

@@ -1,6 +1,9 @@
 """Dense decoder-only transformer — the port of the dense branch of
-``repro.models.transformer`` (``init_params``, ``init_cache``,
-``prefill``, ``decode_step``, ``extend_step``).
+``repro.models.transformer`` (``init_params``, ``forward``,
+``init_cache``, ``prefill``, ``decode_step``, ``extend_step``).
+
+``forward`` is the training forward (autograd records it); the serving
+methods run under ``torch.no_grad``.
 
 Weights are layer-stacked like the reference's scanned params (leading
 axis L), under the reference's names, so ``convert`` copies a JAX params
@@ -17,6 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -61,11 +65,10 @@ class Transformer(nn.Module):
                 for i in range(shape[0]):
                     out[i] = (torch.randn(shape[1:], generator=gen,
                                           device=device) * std).to(dtype)
-            return nn.Parameter(out, requires_grad=False)
+            return nn.Parameter(out)
 
         def ones(shape):
-            return nn.Parameter(torch.ones(shape, dtype=dtype, device=device),
-                                requires_grad=False)
+            return nn.Parameter(torch.ones(shape, dtype=dtype, device=device))
 
         self.embed = normal((cfg.vocab, cfg.d_model), 0.02)
         self.head = normal((cfg.d_model, cfg.vocab), 1 / math.sqrt(cfg.d_model))
@@ -123,6 +126,29 @@ class Transformer(nn.Module):
         x = L.rms_norm(x, self.ln_out, self.cfg.rms_eps)
         return torch.einsum("bsd,dv->bsv", x, self.head)
 
+    def forward(self, tokens: torch.Tensor, *, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: tokens (B, S) -> (logits (B, S, V), aux
+        0.0 f32, the dense branch's load-balance loss), causal attention
+        through ``layers.attention`` (full or blockwise by S).  ``remat``
+        recomputes each layer in the backward
+        (``torch.utils.checkpoint``, for the reference's
+        ``jax.checkpoint``)."""
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+        def attend(i, q, k, v):
+            return L.attention(q, k, v)
+
+        x = self.embed[tokens]
+        for i in range(self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._layer, i, x, positions, attend,
+                               use_reentrant=False)
+            else:
+                x = self._layer(i, x, positions, attend)
+        return self._logits(x), torch.zeros((), device=tokens.device)
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_seq: int
                 ) -> Tuple[torch.Tensor, Cache]:
@@ -134,7 +160,7 @@ class Transformer(nn.Module):
         def attend(i, q, k, v):
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-            return L.causal_attention(q, k, v)
+            return L.attention(q, k, v)
 
         x = self.embed[tokens]
         for i in range(self.cfg.n_layers):

@@ -21,7 +21,8 @@ Combo rules enforced by ``validate()``:
 
 ``mesh`` and ``overlap=True`` are fields of the record (the surface is
 the reference's) but the port's ``Scheduler`` raises
-``NotImplementedError`` on them (ROADMAP items 14 and 9).  The
+``NotImplementedError`` on them (ROADMAP's "Multi-device and TPU
+tooling" and "Streaming and overlap" items).  The
 reference's ``shard_params`` only acts with a mesh and returns with it.
 """
 from __future__ import annotations

@@ -683,9 +683,11 @@ def serve_requests(t_model: Model, d_model: Model,
 
 def serve_stream(*args, **kwargs):
     """The async-iterator surface of the reference (double-buffered
-    ``overlap`` loop, per-token streaming) is not ported (ROADMAP item 9);
+    ``overlap`` loop, per-token streaming) is not ported (ROADMAP's
+    "Streaming and overlap" item);
     ``serve_requests(config=ServeConfig(on_token=...))`` streams tokens
     at sync points."""
     raise NotImplementedError(
         "serve_stream: the async streaming surface and overlap=True are not "
-        "ported (ROADMAP item 9); use serve_requests with on_token")
+        "ported (ROADMAP's \"Streaming and overlap\" item); use "
+        "serve_requests with on_token")

@@ -43,8 +43,9 @@ plain functions on the state's tensors (written in place), and each sync
 round reads the round's flags and the live slots' buffer rows to the host.
 A ``strength_controller`` (``serve.keys.StrengthController``) resolves a
 request's ``tier`` to the strength γ of its slot at admission.  Not
-ported, each raising ``NotImplementedError``: ``mesh=`` (ROADMAP item 14)
-and ``overlap=True`` (item 9).
+ported, each raising ``NotImplementedError``: ``mesh=`` (ROADMAP's
+"Multi-device and TPU tooling" item) and ``overlap=True`` (its "Streaming
+and overlap" item).
 """
 from __future__ import annotations
 
@@ -496,11 +497,11 @@ class Scheduler:
         if mesh is not None:
             raise NotImplementedError(
                 "Scheduler(mesh=...): the multi-device path is not ported "
-                "(ROADMAP item 14)")
+                "(ROADMAP's \"Multi-device and TPU tooling\" item)")
         if overlap:
             raise NotImplementedError(
                 "Scheduler(overlap=True): the double-buffered loop is not "
-                "ported (ROADMAP item 9)")
+                "ported (ROADMAP's \"Streaming and overlap\" item)")
         self.t_model, self.d_model = t_model, d_model
         self.tcfg, self.dcfg, self.scfg = t_model.cfg, d_model.cfg, scfg
         self.dev = t_model.embed.device

@@ -21,7 +21,12 @@ ref.ssd_tol, chip_smoke.py's bound (twice γ_D times the output's
 envelope, the plain version run on absolute values); the WKV state equal
 to ref.wkv_ref's, the scan equal to a loop of steps, and a row of ssd, wkv
 and the fused tail's tournament alone equal to it in a batch, bit for
-bit."""
+bit.  Training: the differentiable recurrences' gradients (``ops.Replay``:
+the kernel forward, the plain version replayed backward) against autograd
+straight through the plain version, within ref.replay_grad_tol; 3 fit
+steps of a smoke Zamba2 (ssm.chunk 8) on the card against the CPU, each
+loss within rtol 1e-4 (AdamW's g / (|g| + eps) turns the last bits of a
+gradient near 0 into a visible step; the CPU parity test holds the same)."""
 import numpy as np
 import pytest
 import torch
@@ -742,3 +747,70 @@ def test_ssd_scalar_kernel_takes_what_the_tiled_cannot(cuda, S, chunk, hd,
     wide = _recurrent_inputs("ssd", (1, 80, 2, 32, 300), dtype, cuda, seed=1)
     with pytest.raises(ValueError):
         ops.ssd(*wide, chunk=80)
+
+
+def replay_grads(kernel, args, chunk):
+    """Gradients of Σ y² + Σ state² through the Function (on the card the
+    kernel's forward) and through the plain version it replays, and the
+    bound on their difference (ref.replay_grad_tol)."""
+    op = {"wkv": ops.wkv, "ssd_scan": ops.ssd_scan,
+          "ssd": lambda *a: ops.ssd(*a, chunk=chunk)}[kernel]
+    plain = ref.wkv_ref if kernel == "wkv" else ref.ssd_ref
+
+    def grads(fn):
+        xs = [a.clone().requires_grad_() for a in args]
+        y, s = fn(*xs)
+        return (y.detach(), s.detach()), torch.autograd.grad(
+            (y ** 2).sum() + (s ** 2).sum(), xs)
+
+    ops.reset_launches()
+    outs, got = grads(op)
+    launches = dict(ops.LAUNCHES)
+    _, want = grads(plain)
+    if kernel == "wkv":
+        tols = ref.wkv_tol(*args)
+    else:      # the chunked kernel against the per-timestep replay
+        tols = [torch.maximum(a, b) for a, b in zip(
+            ref.ssd_tol(*args, chunk=chunk), ref.ssd_tol(*args))]
+    bound = ref.replay_grad_tol(kernel, args, outs, tols)
+    return got, want, bound, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,shape,chunk", [
+    ("wkv", (2, 64, 4, 64), 0), ("wkv", (2, 33, 3, 32), 0),
+    ("ssd", (2, 100, 4, 64, 64), 32), ("ssd", (2, 40, 3, 32, 16), 8),
+    ("ssd_scan", (2, 40, 4, 32, 16), 0)])
+def test_replay_gradients_match_plain_autograd(cuda, kernel, shape, chunk):
+    args = _recurrent_inputs(kernel, shape, torch.float32, cuda,
+                             seed=sum(shape))
+    got, want, bound, launches = replay_grads(kernel, args, chunk)
+    counted = {"wkv": "wkv", "ssd": "ssd", "ssd_scan": "ssd_step"}[kernel]
+    assert launches[counted] == 1 and sum(launches.values()) == 1
+    for i, (g, w, b) in enumerate(zip(got, want, bound)):
+        assert bool(torch.isfinite(g).all()), i
+        assert bool(((g - w).abs() <= b).all()), \
+            (i, float(((g - w).abs() / b).max()))
+
+
+@pytest.mark.gpu
+def test_fit_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.model import init_params
+    from repro_torch.train import loop as TT
+    cfg = get_smoke_config("zamba2-1.2b", vocab=synthetic.VOCAB)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=8))
+    tree = convert.to_jax_tree(init_params(cfg, seed=3, device="cpu"))
+    stream = synthetic.token_stream(synthetic.SyntheticCorpus(), 30)
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launches()
+        _, hist[dev] = TT.fit(cfg, synthetic.batches(stream, 2, 32, seed=4),
+                              steps=3, params=tree, device=dev,
+                              verbose=False)
+        if dev == "cuda":
+            assert ops.LAUNCHES["ssd"] == 3 * cfg.n_layers
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
