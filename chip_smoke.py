@@ -95,8 +95,23 @@ Phases, each fatal on failure, in this order:
      parameter moved, 38 ssd launches a step; ms per step, tokens/s, peak
      memory); 5 fit steps of the yi-6b, rwkv6-3b and zamba2-1.2b smoke
      configs on the card against the CPU, each loss within
-     TRAIN_LOSS_RTOL; benchmarks/common.py's pair trained 300 steps (the
-     loss must fall) and its Gumbel K=4 AATPS beside the untrained pair's.
+     TRAIN_LOSS_RTOL; benchmarks/common.py's pair trained 300 steps
+     through repro_torch.train.pair into artifacts/ (the loss must fall)
+     and its Gumbel K=4 AATPS beside the untrained pair's;
+  7. streaming (run right after 3b, on its models): phase 3b's 24
+     requests through engine.serve_stream with overlap on, gumbel and
+     synthid, the pool sized for the doubled page-growth horizon:
+     streamed tokens equal the drained results, which equal phase 3b's
+     (overlap off) bit for bit (tokens, src, u, context hashes);
+     device_get runs once a sync round; the pool drains; requests/s,
+     tokens/s, TTFT and p95 gap printed beside phase 3b's, and for gumbel
+     host syncs a round and the idle share in a traced window beside
+     phase 3b's window;
+  7b. (after 6) python -m repro_torch.launch.serve on a JSONL replay
+     (stream, overlap, paged, prefix cache, key pool, a tier line) and
+     without --requests, and python -m repro_torch.examples.tradeoff_curves
+     and .quickstart (phase 6's pair from its cache), four processes at
+     once: each exits 0 and prints its report lines.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -121,6 +136,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 DEV = "cuda"                 # rehearsals on the CPU set "cpu"
+SMI = ""                     # the card's name and power limit (main sets it)
 MARGIN_TOL = 1e-5            # race margin under which a token may flip
 DIST_RTOL, DIST_ATOL = 1e-4, 1e-7   # tournament distributions (sum order)
 # scalar operations per element, counted for the bound (int and float
@@ -1394,11 +1410,12 @@ def parts_scheduler():
     return PartsScheduler
 
 
-def serve_config(reqs, **over):
+def serve_config(reqs, overlap=False, **over):
     """The paged serving config: num_pages covers the worst-case live
     footprint of ``batch`` slots (the scheduler raises on mid-request
-    exhaustion) and stays below batch × max_pages, so the pool and not the
-    rectangle bounds memory."""
+    exhaustion; under ``overlap`` its page growth looks two chunks ahead)
+    and stays below batch × max_pages, so the pool and not the rectangle
+    bounds memory."""
     from repro_torch.serve.config import ServeConfig
     c = dict(SERVE, **over)
     K1, ps = c["K"] + 1, c["page_size"]
@@ -1406,19 +1423,23 @@ def serve_config(reqs, **over):
     max_n = max(n for _, n in reqs)
     max_seq = max_S0 + 1 + K1 * max_n + 2
     max_pages = -(-max_seq // ps)
-    per_slot = min(max_pages, -(-(max_S0 + max_n - 2
-                                  + (c["sync_every"] + 1) * K1) // ps))
+    chunks_ahead = 2 if overlap else 1
+    per_slot = min(max_pages, -(-(max_S0 + max_n - 2 + (
+        chunks_ahead * c["sync_every"] + 1) * K1) // ps))
     num_pages = c["batch"] * per_slot + 1 + c["batch"]
     check(num_pages < c["batch"] * max_pages,
           f"pool of {num_pages} pages not below {c['batch']} x {max_pages}")
     return ServeConfig(batch=c["batch"], key=0xC0FFEE, page_size=ps,
                        num_pages=num_pages, prefill_chunk=c["prefill_chunk"],
-                       sync_every=c["sync_every"], prefix_cache=True)
+                       sync_every=c["sync_every"], prefix_cache=True,
+                       overlap=overlap)
 
 
 def phase_serve(target, draft):
     """24 requests through serve_requests (paged, prefix cache) for gumbel
-    and synthid at full width; returns the launch counts and the results.
+    and synthid at full width; returns the launch counts, the numbers and
+    the RequestResults of each scheme's timed run (phase 7 holds its
+    overlapped runs to them).
     The timed runs are serve_requests as users call it; for gumbel the
     same requests then go once more through a Scheduler that times its
     parts, for the breakdown and the FIFO and admit-order checks (the
@@ -1436,7 +1457,7 @@ def phase_serve(target, draft):
     nt, nd = target.cfg.n_layers, draft.cfg.n_layers
     per_step, per_chunk = nt + nd * (SERVE["K"] + 1), nt + nd
     counts = {k: 0 for k in ops.LAUNCHES}
-    results = {}
+    results, served = {}, {}
     for wm in SERVE_SCHEMES:
         scfg = E.SpecConfig(K=SERVE["K"], watermark=wm,
                             temperature=SERVE["temperature"])
@@ -1511,9 +1532,136 @@ def phase_serve(target, draft):
         results[wm]["pool_gib"] = pool / 2**30
         results[wm]["profile"] = traced_serve(target, draft, scfg, reqs, cfg)
         print(f"serve {wm}: " + json.dumps(results[wm]))
-        del res
+        served[wm] = res
     check(all(counts[k] > 0 for k in KERNEL_NAMES),
           f"a kernel of the paged path was never launched: {counts}")
+    return counts, results, served
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: streaming and the double-buffered loop at full width
+# ---------------------------------------------------------------------------
+
+# phase 3b's requests through engine.serve_stream with overlap on; phase
+# 3b's unpatched serve_requests runs are the overlap-off side
+STREAM_SCHEMES = SERVE_SCHEMES
+SERVED_FIELDS = ("tokens", "src", "u", "ctx_hashes")
+
+
+def stream_serve(target, draft, scfg, reqs, cfg):
+    """One serve_stream call drained under asyncio.run, with
+    ``scheduler.device_get`` counted.  -> (events, results in uid order,
+    stats, seconds, device_get calls)."""
+    import asyncio
+    import dataclasses
+    import torch
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import scheduler as S
+    got, stats, events = [], {}, []
+    cfg = dataclasses.replace(cfg, on_result=got.append)
+    real, gets = S.device_get, []
+
+    def counted(handles):
+        gets.append(1)
+        return real(handles)
+
+    async def consume():
+        async for ev in E.serve_stream(target, draft, scfg, reqs,
+                                       config=cfg, stats_out=stats):
+            events.append(ev)
+
+    torch.cuda.synchronize()
+    S.device_get = counted
+    try:
+        t = time.perf_counter()
+        asyncio.run(consume())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        S.device_get = real
+    return events, sorted(got, key=lambda r: r.uid), stats, secs, len(gets)
+
+
+def phase_stream(target, draft, serve_results, served):
+    """Phase 3b's 24 requests through engine.serve_stream with overlap on
+    (paged, prefix cache, the pool sized for the doubled horizon), gumbel
+    and synthid.  Each run must stream exactly its drained results, equal
+    phase 3b's overlap=False results bit for bit (tokens, src, u, context
+    hashes), call device_get once a sync round and drain the pool.
+    Prints requests/s, tokens/s, mean TTFT and p95 gap beside phase 3b's,
+    and, for gumbel, host syncs a round and the idle share in a traced
+    window beside phase 3b's window (TRACE_ROUNDS rounds of the same
+    load).  -> (launch counts by path, results)."""
+    import numpy as np
+    from repro_torch.configs import LLAMA_7B
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
+    reqs = serve_workload(5, SERVE["n_requests"], SERVE["prompt"],
+                          SERVE["n_tokens"], LLAMA_7B.vocab, SERVE["system"])
+    cfg = serve_config(reqs, overlap=True)
+    counts, results = {}, {}
+    for wm in STREAM_SCHEMES:
+        name = f"serve_stream {wm} overlap"
+        scfg = E.SpecConfig(K=SERVE["K"], watermark=wm,
+                            temperature=SERVE["temperature"])
+        ops.reset_launches()
+        events, res, stats, secs, gets = stream_serve(target, draft, scfg,
+                                                      reqs, cfg)
+        counts[name] = dict(ops.LAUNCHES)
+        check(len(res) == len(reqs), f"{name}: {len(res)} results")
+        streamed = {}
+        for uid, tok, _ in events:
+            streamed.setdefault(uid, []).append(tok)
+        for r in res:
+            check(np.array_equal(streamed.get(r.uid, []), r.tokens),
+                  f"{name}: uid {r.uid} streamed != drained")
+        differ = [(a.uid, f) for a, b in zip(served[wm], res)
+                  for f in SERVED_FIELDS
+                  if not np.array_equal(getattr(a, f), getattr(b, f))]
+        check(not differ and [a.uid for a in served[wm]]
+              == [b.uid for b in res],
+              f"{name}: differs from phase 3b's overlap=False results "
+              f"(uid, field): {differ[:8]}")
+        rounds = int(stats["sync_rounds"])
+        check(gets == rounds, f"{name}: device_get ran {gets} times over "
+              f"{rounds} sync rounds")
+        check(stats["pages_used"] == stats["prefix_pages"],
+              f"{name}: {stats['pages_used']} pages used at the end, "
+              f"{stats['prefix_pages']} held by the prefix cache")
+        n_tok = int(sum(r.length for r in res))
+        results[name] = dict(
+            seconds=secs, requests_per_s=len(res) / secs,
+            tokens_per_s=n_tok / secs, tokens=n_tok,
+            ttft_mean_s=stats["ttft_mean_s"], gap_p95_s=stats["gap_p95_s"],
+            sync_rounds=rounds, n_steps=int(stats["spec_steps"]),
+            ms_per_step=secs / int(stats["spec_steps"]) * 1e3,
+            device_get_per_round=gets / rounds, num_pages=cfg.num_pages,
+            pages_peak=stats["pages_peak"], events=len(events),
+            same_as_phase_3b=True)
+        b = serve_results[wm]
+        print(f"{name}: {len(res) / secs:.3f} requests/s "
+              f"({b['requests_per_s']:.3f} with overlap off, phase 3b), "
+              f"{n_tok / secs:.1f} tokens/s ({b['tokens_per_s']:.1f}), "
+              f"TTFT {stats['ttft_mean_s']:.3f} s ({b['ttft_mean_s']:.3f}),"
+              f" p95 gap {stats['gap_p95_s']:.4f} s ({b['gap_p95_s']:.4f}),"
+              f" {rounds} rounds ({b['sync_rounds']}), "
+              f"{gets / rounds:.0f} device_get a round, {cfg.num_pages} "
+              f"pages ({b['num_pages']}) [{SMI}]")
+        if wm == STREAM_SCHEMES[0]:
+            win = traced_serve(target, draft, scfg, reqs, cfg)
+            off = b["profile"]
+            results[name]["profile"] = win
+            print(f"{name} window: host syncs "
+                  f"{win['host_syncs'] / win['rounds']:.2f} a round + 1 "
+                  f"device_get ({off['host_syncs'] / off['rounds']:.2f} "
+                  f"with overlap off), idle share "
+                  f"{win['device_idle_share']:.3f} "
+                  f"({off['device_idle_share']:.3f}), "
+                  f"{win['ms_per_step']:.1f} ms a step "
+                  f"({off['ms_per_step']:.1f}) [{SMI}]")
+    check(all(sum(c[k] for c in counts.values()) > 0 for k in KERNEL_NAMES),
+          f"a kernel of the streaming path was never launched: {counts}")
+    print("stream: " + json.dumps(results))
     return counts, results
 
 
@@ -2324,23 +2472,14 @@ TRAIN_CPU = dict(archs=("yi-6b", "rwkv6-3b", "zamba2-1.2b"), steps=5, B=2,
 # last bits of a gradient near 0 into a visible step, and later losses
 # inherit it (tests/test_torch_train.py holds the reference to the same)
 TRAIN_LOSS_RTOL = 1e-4
-# benchmarks/common.py's pair (target_cfg / draft_cfg, its train_pair and
-# tab1_efficiency's Gumbel rows: 400 documents, B=16, S=64, 300 steps;
-# AATPS over 8 prompts of 12 tokens, 48 tokens, K=4, temperature 0.5)
-PAIR_TRAIN = dict(steps=300, B=16, S=64, n_docs=400)
+# benchmarks/common.py's pair as repro_torch.train.pair trains it
+# (target_cfg / draft_cfg, train_pair: 400 documents, B=16, S=64, 300
+# steps), cached under artifacts/ for phase 7b's quickstart; AATPS as
+# tab1_efficiency's Gumbel rows (8 prompts of 12 tokens, 48 tokens, K=4,
+# temperature 0.5)
+PAIR_STEPS = 300
 PAIR_AATPS = dict(B=8, prompt=12, n_tokens=48, K=4, temperature=0.5, key=7)
-
-
-def pair_cfgs():
-    """benchmarks/common.py's target_cfg and draft_cfg: yi-6b's smoke
-    family at V=256, 2 layers of d 128 and 1 layer of d 64."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.data import synthetic
-    V = synthetic.VOCAB
-    return (get_smoke_config("yi-6b", vocab=V, n_layers=2, d_model=128,
-                             d_ff=256, n_heads=4, n_kv_heads=2, head_dim=32),
-            get_smoke_config("yi-6b", vocab=V, n_layers=1, d_model=64,
-                             d_ff=128, n_heads=2, n_kv_heads=2, head_dim=32))
+ARTIFACTS = ROOT / "artifacts"
 
 
 def train_grads():
@@ -2528,43 +2667,30 @@ def train_card_vs_cpu():
 
 
 def train_pair():
-    """benchmarks/common.py's pair trained on the card (fit, 300 steps at
-    B=16, S=64: the target from seed 0 on batches of seed 0, the draft
-    from seed 1 on batches of seed 1); the loss must fall, as
+    """The examples' pair (``repro_torch.train.pair.train_pair``) trained
+    on the card, forced, into ARTIFACTS; the loss must fall, as
     examples/train_multiarch.py asserts.  Then Gumbel K=4 AATPS of the
     untrained and the trained pair (printed, not gated).  -> (launch counts
     of the trained pair's generate, results)."""
-    import numpy as np
-    from repro_torch.data import synthetic
     from repro_torch.models.model import init_params
     from repro_torch.serve import engine as E
-    from repro_torch.train import loop as TT
-    tcfg, dcfg = pair_cfgs()
-    cp = synthetic.SyntheticCorpus()
-    stream = synthetic.token_stream(cp, PAIR_TRAIN["n_docs"])
-    B, S, steps = PAIR_TRAIN["B"], PAIR_TRAIN["S"], PAIR_TRAIN["steps"]
-    res, trained = {}, []
-    for name, cfg, seed in (("target", tcfg, 0), ("draft", dcfg, 1)):
-        t = time.perf_counter()
-        model, hist = TT.fit(cfg, synthetic.batches(stream, B, S, seed=seed),
-                             steps=steps, seed=seed, device=DEV,
-                             verbose=False)
-        secs = time.perf_counter() - t
+    from repro_torch.train import pair
+    stats = {}
+    tcfg, dcfg, *trained, cp = pair.train_pair(
+        PAIR_STEPS, force=True, cache_dir=str(ARTIFACTS), device=DEV,
+        stats_out=stats)
+    res = {}
+    for name, cfg in (("target", tcfg), ("draft", dcfg)):
+        hist, secs = stats[name]["losses"], stats[name]["seconds"]
         check(hist[-1] < hist[0], f"train pair {name}: loss {hist[0]} -> "
               f"{hist[-1]} did not fall")
         res[name] = dict(first_loss=hist[0], last_loss=hist[-1],
-                         seconds=secs, ms_per_step=secs / steps * 1e3)
+                         seconds=secs, ms_per_step=secs / PAIR_STEPS * 1e3)
         print(f"train pair {name} ({cfg.n_layers} layers, d "
               f"{cfg.d_model}): loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
-              f"{steps} steps, {secs:.1f} s")
-        trained.append(model)
+              f"{PAIR_STEPS} steps, {secs:.1f} s")
     a = PAIR_AATPS
-    rows = []
-    for p in synthetic.prompts(cp, a["B"], prompt_words=3, seed=5):
-        p = p[:a["prompt"]]
-        rows.append(np.concatenate([np.full(a["prompt"] - len(p),
-                                            synthetic.PAD, np.int32), p]))
-    prompts = np.stack(rows)
+    prompts = pair.bench_prompts(cp, a["B"], seq=a["prompt"])
     scfg = E.SpecConfig(K=a["K"], watermark="gumbel",
                         temperature=a["temperature"])
     untrained = [init_params(tcfg, seed=0, device=DEV),
@@ -2593,6 +2719,116 @@ def phase_train():
     pc, res["pair"] = train_pair()
     counts.update(pc)
     return counts, res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: the serving launcher and the examples, each its own process
+# ---------------------------------------------------------------------------
+
+# the launcher's replay: 4 slots of the yi-6b smoke pair (K=3); prompts of
+# up to 40 tokens, half opening with a 32-token system prompt (two pages of
+# 16), at most 32 tokens: 171 positions, 11 pages a slot at the doubled
+# horizon, so 80 pages hold the slots and the prefix cache
+LAUNCH_PAGES = 80
+LAUNCH_TIMEOUT = 300
+
+
+def launch_requests():
+    """The replay's JSONL lines: token prompts (every other one opening
+    with the system prompt), a text line with a tier, one with an explicit
+    key and uid."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    system = rng.integers(3, 256, 32).tolist()
+    lines = []
+    for i in range(6):
+        tail = rng.integers(3, 256, int(rng.integers(4, 9))).tolist()
+        lines.append({"tokens": (system if i % 2 else []) + tail,
+                      "n_tokens": int(rng.integers(12, 33))})
+    lines.append({"text": "the quick brown fox", "n_tokens": 24,
+                  "tier": "balanced"})
+    lines.append({"tokens": system + [7, 9, 11], "n_tokens": 20,
+                  "key": 1234, "uid": 99})
+    return lines
+
+
+def phase_launch():
+    """``python -m repro_torch.launch.serve`` on a JSONL replay (stream,
+    overlap, paged, prefix cache, key pool, a tier line) and without
+    --requests, ``repro_torch.examples.tradeoff_curves`` and
+    ``quickstart`` (on phase 6's pair, from its cache), all at once, each
+    in its own process on the card; each must exit 0 and print its report
+    lines.  -> results."""
+    import os
+    import re
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    py = [sys.executable, "-m"]
+    dev = [] if DEV == "cuda" else ["--device", DEV]   # the default: cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "requests.jsonl"
+        path.write_text("".join(json.dumps(r) + "\n"
+                                for r in launch_requests()))
+        runs = {
+            "launch.serve replay": py + [
+                "repro_torch.launch.serve", "--requests", str(path),
+                "--stream", "--overlap", "--page-size", "16",
+                "--num-pages", str(LAUNCH_PAGES), "--prefix-cache",
+                "--key-pool", "4"] + dev,
+            "launch.serve generate": py + ["repro_torch.launch.serve"] + dev,
+            "examples.tradeoff_curves": py + [
+                "repro_torch.examples.tradeoff_curves"] + dev,
+            "examples.quickstart": py + [
+                "repro_torch.examples.quickstart", "--cache-dir",
+                str(ARTIFACTS)] + dev,
+        }
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+                 for name, cmd in runs.items()}
+        outs = {}
+        try:
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+                outs[name] = (proc.returncode, out, err,
+                              time.perf_counter() - t)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    want = {"launch.serve replay": (
+                r"continuous batching paged\(page_size=16, num_pages="
+                rf"{LAUNCH_PAGES}, prefix-cache\) key-pool=4: 8 requests "
+                r"over 4 slots \[overlap\]", r"AATPS=[0-9.]+ tokens=\d+",
+                r"TTFT mean=", r"prefix cache: hits=[1-9]",
+                r"tier=balanced", r"req 99: \d+ tokens key=000004d2"),
+            "launch.serve generate": (r"AATPS=[0-9.]+ tokens/step=",
+                                      r"sample bytes:"),
+            "examples.tradeoff_curves": (r"> sampling efficiency",),
+            "examples.quickstart": (r"AUC = [0-9.]+", r"AATPS")}
+    res = {}
+    for name, (rc, out, err, secs) in outs.items():
+        check(rc == 0, f"{name}: exit {rc}\n{out[-2000:]}\n{err[-4000:]}")
+        for pat in want[name]:
+            check(re.search(pat, out), f"{name}: no line matching {pat!r} "
+                  f"in\n{out[-3000:]}")
+        lines = [ln for ln in out.splitlines()
+                 if not ln.startswith("  stream ")]
+        res[name] = dict(seconds_by=secs, report=lines[-8:])
+        print(f"{name}: exit 0, done {secs:.1f} s after the four started")
+        for ln in lines[-8:]:
+            print("  | " + ln)
+    replay = outs["launch.serve replay"][1]
+    tokens = int(re.search(r"AATPS=[0-9.]+ tokens=(\d+)", replay).group(1))
+    n_stream = len(re.findall(r"^  stream uid=", replay, re.M))
+    check(n_stream == tokens, f"launch.serve replay: {n_stream} streamed "
+          f"tokens, {tokens} served")
+    check(not re.search(r"step +\d+ loss=", outs["examples.quickstart"][1]),
+          "quickstart trained its pair again instead of loading phase 6's")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2653,6 +2889,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     print(f"device: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     from repro_torch.kernels import build
@@ -2679,8 +2917,12 @@ def main() -> int:
     record += rec_record
     target, draft = make_pair()
     counts, slice_results = timed("3 generate", phase_slice, target, draft)
-    serve_counts, serve_results = timed("3b serve_requests", phase_serve,
-                                        target, draft)
+    serve_counts, serve_results, served = timed(
+        "3b serve_requests", phase_serve, target, draft)
+    stream_counts, stream_results = timed("7 streaming", phase_stream,
+                                          target, draft, serve_results,
+                                          served)
+    del served
     del draft
     torch.cuda.empty_cache()
     rec_counts, rec_results = timed("3c recurrent drafts", phase_recurrent,
@@ -2695,9 +2937,11 @@ def main() -> int:
     tiny_rec_margin_rows, tiny_rec_rows, tiny_rec_counts = timed(
         "4c tiny recurrent drafts", phase_tiny_recurrent)
     train_counts, train_results = timed("6 training", phase_train)
+    launch_results = timed("7b launcher and examples", phase_launch)
 
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
+             **stream_counts,
              **rec_counts, **measure_counts,
              "ssd scalar-kernel shapes (phase 2c)": scalar_counts,
              **train_counts}
@@ -2727,6 +2971,8 @@ def main() -> int:
                       "tiny_recurrent_rows": tiny_rec_rows,
                       "tiny_recurrent_launches": tiny_rec_counts,
                       "train": train_results,
+                      "stream": stream_results,
+                      "launch": launch_results,
                       "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,282 @@
+"""Serving launcher: watermarked speculative decoding for an architecture
+of the port's registry (its smoke config, random weights from seeds), on
+the card unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --watermark gumbel --k 3 --tokens 32 [--device cpu]
+
+Continuous batching: ``--requests FILE.jsonl`` replays a request log
+through the scheduler (``engine.serve_requests``) instead of one fixed
+batch — each line is ``{"tokens": [...], "n_tokens": N}`` (or ``{"text":
+"...", ...}``, byte-encoded with the synthetic vocab); prompts are
+admitted FIFO into ``--batch`` live slots at sync points:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests reqs.jsonl \
+        --batch 4 --sync-every 4 [--eos-id 10]
+
+Multi-tenant keys: a request line may carry ``"key": <int>`` (serve that
+request under an explicit watermark key word), ``"tier":
+"latency"|"balanced"|"assurance"`` (map the tier to a watermark strength
+γ on the trade-off curve) and ``"uid"``.  ``--key-pool N`` serves keyless
+requests from a rotating N-word ``serve.keys.KeyPool`` instead of the
+single launch key.  The replay report prints each request's 8-hex key
+fingerprint.  Unknown request fields are an error (a typo must not
+silently serve under default keying).
+
+Streaming & overlap: ``--stream`` prints every token as it surfaces at a
+sync point (the ``on_token`` surface), and the replay report gives
+per-request TTFT / inter-token-gap aggregates and the prefix-cache
+counters; ``--overlap`` enqueues each round's host snapshot before its
+decode chunk (same served bits; paged pools need the doubled page-growth
+horizon).
+
+Not ported: ``--dry-run``, ``--mesh``, ``--devices`` and ``--multi-pod``
+(ROADMAP's "Multi-device and TPU tooling" item); an ``--arch`` outside
+``configs.REGISTRY`` (its "Other families" item).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from repro_torch.configs import REGISTRY, get_smoke_config
+from repro_torch.data import synthetic
+from repro_torch.models.model import init_params
+from repro_torch.serve import engine as E
+from repro_torch.serve import keys as KZ
+from repro_torch.serve.config import ServeConfig
+
+KEY = 0          # the reference's launch key, jax.random.key(0), as a word
+PROMPT_LEN = 12
+REQUEST_FIELDS = {"tokens", "text", "n_tokens", "key", "tier", "uid"}
+MULTI_DEVICE = ("the port's multi-device path arrives with ROADMAP's "
+                "\"Multi-device and TPU tooling\" item")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--draft-arch", default="",
+                    help="draft model architecture (e.g. rwkv6-3b for a "
+                         "recurrent drafter under an attention target); "
+                         "default: a 1-layer dense draft of --arch's family")
+    ap.add_argument("--watermark", default="gumbel",
+                    choices=["gumbel", "synthid", "synthid-inf", "none"])
+    ap.add_argument("--accept", default="pseudorandom",
+                    choices=["pseudorandom", "standard"])
+    ap.add_argument("--k", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.7)
+    ap.add_argument("--dry-run", action="store_true",
+                    help="(the reference lowers the serve step on a TPU "
+                         "mesh; not ported)")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["decode_32k", "long_500k"],
+                    help="the --dry-run shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="(with --dry-run; not ported)")
+    ap.add_argument("--mesh", default="",
+                    help="(sharded serving on a DATAxMODEL mesh; not "
+                         "ported)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="(forced fake devices; not ported)")
+    ap.add_argument("--requests", default="",
+                    help="continuous-batching replay: JSONL file of "
+                         '{"tokens": [...], "n_tokens": N} requests '
+                         "served FIFO through --batch live slots")
+    ap.add_argument("--sync-every", type=int, default=4,
+                    help="scheduler sync-point interval (steps between "
+                         "admission/flush opportunities)")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="token id that terminates a slot early "
+                         "(-1 = disabled)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="block-paged KV cache: tokens per page (0 = "
+                         "dense caching); requires --num-pages")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="block-paged KV cache: physical pages in the "
+                         "shared pool (page 0 is the reserved null page)")
+    ap.add_argument("--key-pool", type=int, default=0,
+                    help="serve keyless requests from a rotating pool of "
+                         "N watermark key words derived from the launch "
+                         "key (0 = single shared key)")
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="paged admission prefills prompts in chunks of "
+                         "this many tokens")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share identical full-page prompt prefixes across "
+                         "requests via refcounted KV pages; requires "
+                         "--page-size/--num-pages")
+    ap.add_argument("--stream", action="store_true",
+                    help="print each token as it surfaces at a sync point "
+                         "(uid=.. i=.. tok=..) — the on_token surface")
+    ap.add_argument("--overlap", action="store_true",
+                    help="enqueue each round's host snapshot before its "
+                         "decode chunk (served bits unchanged; paged pools "
+                         "need the doubled page-growth horizon)")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def models(arch: str, draft_arch: str = "", device="cuda"):
+    """The launcher's pair, as the reference's launcher builds it: the
+    arch's smoke config at the synthetic vocabulary (weights from seed 1)
+    and a 1-layer draft of its family — or of ``draft_arch``, or a small
+    dense yi-6b draft under a recurrent target (seed 2).
+    -> (target, draft)."""
+    V = synthetic.VOCAB
+    tcfg = get_smoke_config(arch, vocab=V)
+    small = dict(vocab=V, n_layers=1, d_model=64, d_ff=128, n_heads=2,
+                 n_kv_heads=2, head_dim=32)
+    if draft_arch:
+        dcfg = get_smoke_config(draft_arch, vocab=V, n_layers=1,
+                                d_model=64)
+    elif tcfg.arch_type in ("ssm", "hybrid"):
+        # the draft stays a small dense transformer, as in deployment
+        dcfg = get_smoke_config("yi-6b", **small)
+    else:
+        dcfg = get_smoke_config(arch, **small)
+    return (init_params(tcfg, seed=1, device=device),
+            init_params(dcfg, seed=2, device=device))
+
+
+def prompt_batch(batch: int) -> np.ndarray:
+    """The fixed-batch path's prompts: corpus prompts, left-padded with
+    zeros to PROMPT_LEN tokens."""
+    rows = []
+    for p in synthetic.prompts(synthetic.SyntheticCorpus(), batch,
+                               prompt_words=3):
+        p = p[:PROMPT_LEN]
+        rows.append(np.concatenate([np.zeros(PROMPT_LEN - len(p), np.int32),
+                                    p]))
+    return np.stack(rows)
+
+
+def read_requests(ap, path: str, n_tokens: int):
+    """The JSONL request log as ``serve_requests`` dicts; an unknown field
+    is a parser error naming the line."""
+    reqs = []
+    with open(path) as fh:
+        for ln, line in enumerate(fh, 1):
+            line = line.strip()
+            if not line:
+                continue
+            obj = json.loads(line)
+            unknown = sorted(set(obj) - REQUEST_FIELDS)
+            if unknown:
+                ap.error(f"{path}:{ln}: unknown request fields {unknown} — "
+                         f"accepted: {sorted(REQUEST_FIELDS)}")
+            toks = (obj["tokens"] if "tokens" in obj else
+                    synthetic.encode(obj["text"].encode()).tolist())
+            req = {"prompt": np.asarray(toks, np.int32),
+                   "n_tokens": int(obj.get("n_tokens", n_tokens))}
+            for fld in ("key", "tier", "uid"):
+                if fld in obj:
+                    req[fld] = obj[fld]
+            reqs.append(req)
+    return reqs
+
+
+def serve_replay(ap, args, target, draft, scfg):
+    """``--requests``: the log through ``serve_requests``, then the
+    report lines."""
+    reqs = read_requests(ap, args.requests, args.tokens)
+    if args.page_size and not args.num_pages:
+        ap.error("--page-size requires --num-pages")
+    if args.prefix_cache and not args.page_size:
+        ap.error("--prefix-cache requires --page-size/--num-pages "
+                 "(prefix sharing lives on the paged KV pool)")
+    pool = KZ.KeyPool(KEY, n_keys=args.key_pool) if args.key_pool else None
+    ctrl = None
+    if any("tier" in r for r in reqs):
+        # a modest Monte-Carlo budget: the launcher picks γ, it does not
+        # publish the curve
+        ctrl = KZ.StrengthController(decoder_name=args.watermark,
+                                     n_seeds=4000, n_gamma=9,
+                                     device=args.device)
+    on_token = None
+    if args.stream:
+        def on_token(uid, tok, meta):
+            fin = " final" if meta["final"] else ""
+            print(f"  stream uid={uid} i={meta['index']} tok={tok} "
+                  f"t={meta['t_rel_s']:.3f}s{fin}")
+    stats: dict = {}
+    cfg = ServeConfig(
+        batch=args.batch, key=KEY,
+        eos_id=None if args.eos_id < 0 else args.eos_id,
+        sync_every=args.sync_every, page_size=args.page_size or None,
+        num_pages=args.num_pages or None,
+        prefill_chunk=args.prefill_chunk if args.page_size else None,
+        prefix_cache=args.prefix_cache, key_pool=pool,
+        strength_controller=ctrl, overlap=args.overlap, on_token=on_token)
+    results = E.serve_requests(target, draft, scfg, reqs, config=cfg,
+                               stats_out=stats)
+    tot = sum(r.length for r in results)
+    alive = sum(r.alive_steps for r in results)
+    acc = sum(r.n_accepted for r in results)
+    paged = (f" paged(page_size={args.page_size}, "
+             f"num_pages={args.num_pages}"
+             + (", prefix-cache" if args.prefix_cache else "") + ")"
+             if args.page_size else "")
+    pooled = f" key-pool={args.key_pool}" if args.key_pool else ""
+    print(f"arch={args.arch} watermark={args.watermark} "
+          f"continuous batching{paged}{pooled}: {len(results)} "
+          f"requests over {args.batch} slots"
+          + (" [overlap]" if args.overlap else ""))
+    print(f"AATPS={acc / max(alive, 1):.3f} tokens={tot} "
+          f"alive-slot-steps={alive}")
+    if "ttft_mean_s" in stats:
+        gap = (f" gap mean={stats['gap_mean_s'] * 1e3:.1f}ms "
+               f"p95={stats['gap_p95_s'] * 1e3:.1f}ms"
+               if "gap_mean_s" in stats else "")
+        print(f"TTFT mean={stats['ttft_mean_s'] * 1e3:.1f}ms{gap} "
+              "(first-serve wall clock, compile included)")
+    if "prefix_hits" in stats:
+        print(f"prefix cache: hits={stats['prefix_hits']:.0f} "
+              f"misses={stats['prefix_misses']:.0f} "
+              f"pages-saved={stats['prefix_pages_saved']:.0f} "
+              f"evictions={stats['prefix_evictions']:.0f} "
+              f"(entries={stats['prefix_entries']:.0f}, "
+              f"pages held={stats['prefix_pages']:.0f})")
+    for r in results[:8]:
+        tail = " eos" if r.eos else ""
+        tier = f" tier={r.tier}" if r.tier else ""
+        print(f"  req {r.uid}: {r.length} tokens{tail} "
+              f"key={r.key_fingerprint} gamma={r.strength:g}{tier} | "
+              + synthetic.decode_bytes(r.tokens)[:40].decode("latin1"))
+    return results
+
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.dry_run or args.mesh or args.devices or args.multi_pod:
+        raise NotImplementedError(
+            "--dry-run / --mesh / --devices / --multi-pod: " + MULTI_DEVICE)
+    for flag, arch in (("--arch", args.arch),
+                       ("--draft-arch", args.draft_arch)):
+        if arch and arch not in REGISTRY:
+            ap.error(f"{flag} {arch!r} is not in the port's registry "
+                     f"({sorted(REGISTRY)}); the other families arrive "
+                     "with ROADMAP's \"Other families\" item")
+    target, draft = models(args.arch, args.draft_arch, args.device)
+    scfg = E.SpecConfig(K=args.k, watermark=args.watermark,
+                        accept=args.accept, temperature=args.temperature)
+    if args.requests:
+        return serve_replay(ap, args, target, draft, scfg)
+    res = E.generate(target, draft, scfg, prompt_batch(args.batch),
+                     n_tokens=args.tokens, key=KEY)
+    print(f"arch={args.arch} watermark={args.watermark} "
+          f"accept={args.accept} K={args.k}")
+    print(f"AATPS={res.aatps:.3f} tokens/step={res.tokens_per_step:.3f} "
+          f"steps={res.n_steps} tokens={int(res.lengths.sum())}")
+    print("sample bytes:", synthetic.decode_bytes(
+        res.tokens[0, :args.tokens])[:60])
+    return res
+
+
+if __name__ == "__main__":
+    main()

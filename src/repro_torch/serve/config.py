@@ -19,23 +19,33 @@ Combo rules enforced by ``validate()``:
   of silently ignoring it;
 - ``sync_every >= 1``, ``batch >= 1``, positive pool/chunk sizes.
 
-``mesh`` and ``overlap=True`` are fields of the record (the surface is
-the reference's) but the port's ``Scheduler`` raises
-``NotImplementedError`` on them (ROADMAP's "Multi-device and TPU
-tooling" and "Streaming and overlap" items).  The
-reference's ``shard_params`` only acts with a mesh and returns with it.
+The historical keyword arguments (``LEGACY_KWARGS``) still work through
+the deprecation shim of ``serve_requests`` / ``serve_stream``
+(``engine._coerce_serve_config``): they fold into a ``ServeConfig`` under
+a ``DeprecationWarning``.
+
+``overlap=True`` doubles the paged page-growth horizon: size
+``num_pages`` for two chunks of per-slot advance, or ``_ensure_pages``
+raises mid-flight.  ``mesh`` is a field of the record (the surface is the
+reference's), but the port's ``Scheduler`` raises ``NotImplementedError``
+on it (ROADMAP's "Multi-device and TPU tooling" item); the reference's
+``shard_params`` acts only with a mesh, so it is no field here and the
+shim refuses it the same way.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
 
-# the fields Scheduler(...) takes as keyword arguments, in declaration order
-SCHEDULER_FIELDS = ("batch", "key", "max_tokens", "max_prompt_len", "eos_id",
-                    "sync_every", "mesh", "page_size", "num_pages",
-                    "prefill_chunk", "prefix_cache", "key_pool",
-                    "strength_controller", "overlap", "on_token",
-                    "on_result")
+# the reference's legacy serve_requests/serve_stream keyword surface, in
+# declaration order — the deprecation shim folds these into a ServeConfig
+LEGACY_KWARGS = ("batch", "key", "max_tokens", "max_prompt_len", "eos_id",
+                 "sync_every", "mesh", "shard_params", "page_size",
+                 "num_pages", "prefill_chunk", "prefix_cache", "key_pool",
+                 "strength_controller", "overlap", "on_token", "on_result")
+
+# the fields Scheduler(...) takes as keyword arguments
+SCHEDULER_FIELDS = tuple(k for k in LEGACY_KWARGS if k != "shard_params")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,8 +12,9 @@ token the step samples goes through the decoder's batched
 buffers (``init_gen_carry``) and reads the ``done`` flags once per step
 (one device-to-host sync per spec step); a step in which no slot is live
 never runs, so ``n_steps`` equals the reference's.  ``generate`` runs one
-loop over a prefilled batch; ``serve_requests`` runs it in rounds under
-the continuous-batching ``serve.scheduler.Scheduler``.  The KV caches are
+loop over a prefilled batch; ``serve_requests`` (and its async-iterator
+form ``serve_stream``) runs it in rounds under the continuous-batching
+``serve.scheduler.Scheduler``.  The KV caches are
 written in place, so a resumed ``state`` is consumed.
 
 Drafts and targets may be recurrent (``models.ssm.RecurrentLM``): the
@@ -650,25 +651,72 @@ def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
         strength=state["strength"].cpu().numpy(), n_syncs=carry["n_syncs"])
 
 
+def _coerce_serve_config(config, legacy: Dict[str, Any], caller: str):
+    """The deprecation shim of the reference: ``config=ServeConfig(...)``
+    is the supported surface; the historical keyword arguments
+    (``config.LEGACY_KWARGS``) still work but fold into a ``ServeConfig``
+    under a ``DeprecationWarning``.  Mixing both, or an unknown keyword,
+    raises ``TypeError``; ``shard_params`` acts only with a mesh, which is
+    not ported, so it raises ``NotImplementedError`` as ``mesh`` does."""
+    import warnings
+
+    from repro_torch.serve.config import LEGACY_KWARGS, ServeConfig
+
+    unknown = sorted(set(legacy) - set(LEGACY_KWARGS))
+    if unknown:
+        raise TypeError(f"{caller}() got unexpected keyword arguments "
+                        f"{unknown} — accepted: config=ServeConfig(...) "
+                        f"or the legacy kwargs {list(LEGACY_KWARGS)}")
+    if config is not None:
+        if legacy:
+            raise TypeError(
+                f"{caller}() got both config=ServeConfig(...) and legacy "
+                f"keyword arguments {sorted(legacy)} — pass one or the "
+                "other")
+        return config.validate()
+    if "batch" not in legacy or "key" not in legacy:
+        raise TypeError(f"{caller}() needs config=ServeConfig(batch=..., "
+                        "key=..., ...) (or the deprecated batch=/key= "
+                        "kwargs)")
+    if "shard_params" in legacy:
+        raise NotImplementedError(
+            f"{caller}(shard_params=...): parameter sharding acts only with "
+            "a mesh, and the multi-device path is not ported (ROADMAP's "
+            "\"Multi-device and TPU tooling\" item)")
+    warnings.warn(
+        f"passing serving options to {caller}() as individual keyword "
+        "arguments is deprecated — construct a serve.ServeConfig and "
+        f"pass config=; the kwargs surface is removed next release",
+        DeprecationWarning, stacklevel=3)
+    return ServeConfig(**legacy).validate()
+
+
 def serve_requests(t_model: Model, d_model: Model,
-                   scfg: SpecConfig, requests, *, config,
-                   stats_out: Optional[dict] = None):
+                   scfg: SpecConfig, requests, *, config=None,
+                   stats_out: Optional[dict] = None, **legacy):
     """Continuous batching: serve a request list through ``config.batch``
     live slots, admitting queued prompts into freed slots at the loop's
     sync points (``serve.scheduler``).  ``config`` is a
-    ``serve.config.ServeConfig``.  ``requests``: ``scheduler.Request``s,
+    ``serve.config.ServeConfig``; the reference's individual keyword
+    arguments (``batch=``, ``key=``, ...) still work through a deprecation
+    shim (``_coerce_serve_config``).  ``requests``: ``scheduler.Request``s,
     ``(prompt, n_tokens)`` pairs or ``{"prompt", "n_tokens"}`` dicts,
     admitted FIFO; ``max_tokens`` / ``max_prompt_len`` default to the
     maxima over the requests.  ``page_size`` switches the KV caches to the
     block-paged pool (``num_pages`` pages shared by all slots, prompts
     admitted in ``prefill_chunk``-token chunks between decode rounds);
     ``prefix_cache=True`` shares identical full-page prompt prefixes
-    across requests.  Returns ``scheduler.RequestResult``s in uid
-    (submission) order, each equal to a solo ``generate`` of its
-    prompt/key; ``stats_out={}`` receives the scheduler's ``stats()``."""
+    across requests.  ``on_token(uid, token, meta)`` fires as tokens
+    surface at sync points and ``on_result`` per flushed request;
+    ``overlap=True`` enqueues each round's snapshot before its decode
+    chunk (served bits unchanged, tokens visible one chunk later).
+    Returns ``scheduler.RequestResult``s in uid (submission) order, each
+    equal to a solo ``generate`` of its prompt/key; ``stats_out={}``
+    receives the scheduler's ``stats()``.  For an async-iterator surface
+    use ``serve_stream``."""
     from repro_torch.serve.scheduler import Scheduler, as_request
 
-    config = config.validate()
+    config = _coerce_serve_config(config, legacy, "serve_requests")
     reqs = [as_request(r) for r in requests]
     if not reqs:
         return []
@@ -681,13 +729,35 @@ def serve_requests(t_model: Model, d_model: Model,
     return results
 
 
-def serve_stream(*args, **kwargs):
-    """The async-iterator surface of the reference (double-buffered
-    ``overlap`` loop, per-token streaming) is not ported (ROADMAP's
-    "Streaming and overlap" item);
-    ``serve_requests(config=ServeConfig(on_token=...))`` streams tokens
-    at sync points."""
-    raise NotImplementedError(
-        "serve_stream: the async streaming surface and overlap=True are not "
-        "ported (ROADMAP's \"Streaming and overlap\" item); use "
-        "serve_requests with on_token")
+async def serve_stream(t_model: Model, d_model: Model, scfg: SpecConfig,
+                       requests, *, config=None,
+                       stats_out: Optional[dict] = None, **legacy):
+    """Async-iterator variant of ``serve_requests``: yields ``(uid, token,
+    meta)`` as slots progress and awaits between sync rounds, so other
+    coroutines (response writers, request intake) interleave with
+    serving.  It takes the same ``config`` (legacy kwargs deprecated), but
+    with legacy kwargs ``overlap`` defaults on: a streaming consumer is
+    latency-shaped.  Completed ``RequestResult``s arrive through
+    ``on_result`` and the aggregates through ``stats_out``, as in
+    ``serve_requests``; the yielded streams equal those results."""
+    import asyncio
+
+    from repro_torch.serve.scheduler import Scheduler, as_request
+
+    if config is None and "overlap" not in legacy and legacy:
+        legacy = dict(legacy, overlap=True)  # streaming's historical default
+    config = _coerce_serve_config(config, legacy, "serve_stream")
+    reqs = [as_request(r) for r in requests]
+    if not reqs:
+        return
+    config = config.resolved(reqs)
+    sched = Scheduler(t_model, d_model, scfg, **config.scheduler_kwargs())
+    sched.submit_many(reqs)
+    last_round = 0
+    for ev in sched.run_stream():
+        yield ev
+        if ev[2]["round"] != last_round:
+            last_round = ev[2]["round"]
+            await asyncio.sleep(0)
+    if stats_out is not None:
+        stats_out.update(sched.stats())

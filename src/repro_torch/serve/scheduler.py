@@ -39,13 +39,19 @@ such rows by their margin.)  With ``key_pool=`` (``serve.keys.KeyPool``)
 each request is served under its own key word.
 
 The device work is eager PyTorch: admission, chunks and finalize are
-plain functions on the state's tensors (written in place), and each sync
-round reads the round's flags and the live slots' buffer rows to the host.
+plain functions on the state's tensors (written in place).  Each sync
+round reads the round's flags and the live slots' buffer rows to the host
+in ONE transfer (``device_get``): ``_snap_handles`` enqueues copies of
+them into pinned host memory and an event after those copies, and
+``device_get`` waits on that event alone.  With ``overlap=True`` the
+copies are enqueued before the round's decode chunk, so the snapshot is
+the chunk's *input*: a token surfaces one round after it commits, a slot
+that finishes inside the chunk flushes one round later, and no served bit
+changes (admission lands between chunks in stream order either way).
 A ``strength_controller`` (``serve.keys.StrengthController``) resolves a
 request's ``tier`` to the strength γ of its slot at admission.  Not
-ported, each raising ``NotImplementedError``: ``mesh=`` (ROADMAP's
-"Multi-device and TPU tooling" item) and ``overlap=True`` (its "Streaming
-and overlap" item).
+ported: ``mesh=`` raises ``NotImplementedError`` (ROADMAP's
+"Multi-device and TPU tooling" item).
 """
 from __future__ import annotations
 
@@ -444,6 +450,50 @@ class PrefixCache:
         return self.evict(len(self._entries))
 
 
+def _host_copy(tree):
+    """Enqueue a copy of every tensor of ``tree`` (nested dicts) to the
+    host without waiting.  A CUDA tensor goes by ``copy_(...,
+    non_blocking=True)`` into a fresh pinned tensor (into pageable memory
+    the copy would be synchronous; a pinned block returns to PyTorch's
+    host cache only once its copy has run, so no pending copy is
+    overwritten), and one event is recorded after the copies as
+    ``"ready"``.  A CPU tensor is cloned: the caller's buffers may be
+    written in place before ``device_get`` reads them."""
+    on_card = False
+
+    def walk(x):
+        nonlocal on_card
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type != "cuda":
+            return x.clone()
+        on_card = True
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x, non_blocking=True)
+
+    out = walk(tree)
+    ready = None
+    if on_card:
+        ready = torch.cuda.Event()
+        ready.record()
+    return dict(out, ready=ready)
+
+
+def device_get(handles):
+    """The port's ``jax.device_get``, and the one point where a sync round
+    waits on the device outside the decode chunk and admission's own
+    compute: wait on the event of ``_host_copy`` (none on a CPU tree),
+    then hand back the round's view as numpy — ``flags`` and, per live
+    slot, its ``rows``."""
+    if handles["ready"] is not None:
+        handles["ready"].synchronize()
+    flags = {k: v.numpy() for k, v in handles["flags"].items()}
+    got = {k: v.numpy() for k, v in handles["rows"].items()}
+    rows = {b: {k: v[i] for k, v in got.items()}
+            for i, b in enumerate(handles["live"])}
+    return {"flags": flags, "rows": rows}
 
 
 class Scheduler:
@@ -498,10 +548,6 @@ class Scheduler:
             raise NotImplementedError(
                 "Scheduler(mesh=...): the multi-device path is not ported "
                 "(ROADMAP's \"Multi-device and TPU tooling\" item)")
-        if overlap:
-            raise NotImplementedError(
-                "Scheduler(overlap=True): the double-buffered loop is not "
-                "ported (ROADMAP's \"Streaming and overlap\" item)")
         self.t_model, self.d_model = t_model, d_model
         self.tcfg, self.dcfg, self.scfg = t_model.cfg, d_model.cfg, scfg
         self.dev = t_model.embed.device
@@ -521,6 +567,7 @@ class Scheduler:
         self.max_prompt_len = max_prompt_len
         self.eos_id = eos_id
         self.sync_every = sync_every
+        self.overlap = bool(overlap)
         self.on_token = on_token
         self.on_result = on_result
         K1 = scfg.K + 1
@@ -891,14 +938,19 @@ class Scheduler:
         """Grow every live DECODING slot's pages to cover the next decode
         chunk's write horizon (pos can advance ``sync_every * (K+1)`` and
         each step writes ``K`` ahead), planned from the host mirrors of
-        the last snapshot.  Mid-request pool exhaustion raises."""
+        the last snapshot.  Under ``overlap`` that snapshot lags one chunk,
+        so the horizon covers two chunks of advance (a slot that finished
+        in flight may grow a page the flush frees one round later).
+        Mid-request pool exhaustion raises."""
         if not any(s.phase == DECODING for s in self.slots):
             return
         K1 = self.scfg.K + 1
+        chunks_ahead = 2 if self.overlap else 1
         for b, slot in enumerate(self.slots):
             if slot.phase != DECODING or bool(self._done_host[b]):
                 continue
-            horizon = int(self._pos_host[b]) + (self.sync_every + 1) * K1
+            horizon = int(self._pos_host[b]) + (
+                chunks_ahead * self.sync_every + 1) * K1
             need = min(-(-horizon // self.page_size), self.max_pages)
             grow = need - len(self._slot_pages[b])
             if grow <= 0:
@@ -931,25 +983,36 @@ class Scheduler:
     _FLAG_KEYS = ("done", "eos", "lens", "total", "acc_total",
                   "alive_steps")
 
-    def _take_snapshot(self) -> Dict[str, Any]:
-        """The round's host view: the (B,) flags (and paged ``pos``) and
-        the full buffer rows of every DECODING slot, trimmed on the host
+    def _snap_handles(self, carry) -> Dict[str, Any]:
+        """Enqueue one sync round's host view without waiting: the (B,)
+        flags (and paged ``pos``) and the full buffer rows of every
+        DECODING slot, gathered on the device (a copy: the loop writes the
+        buffers in place) and copied into pinned host tensors, then one
+        event after those copies (``_host_copy``).  Under ``overlap`` this
+        runs before the decode chunk, so ``device_get`` never waits on
+        it."""
+        flags = {k: carry[k] for k in self._FLAG_KEYS}
+        if self.paged:
+            flags["pos"] = carry["state"]["t_cache"]["pos"]
+        live = [b for b, s in enumerate(self.slots) if s.phase == DECODING]
+        rows = {}
+        if live:
+            idx = torch.tensor(live, dtype=torch.int64,
+                               pin_memory=self.dev.type == "cuda")
+            idx = idx.to(self.dev, non_blocking=True)
+            rows = {k: carry[k].index_select(0, idx) for k in self._ROW_KEYS}
+        return _host_copy({"flags": flags, "rows": rows, "live": live})
+
+    def _take_snapshot(self, handles) -> Dict[str, Any]:
+        """The round's one transfer (``device_get``), trimmed on the host
         with the ``lens`` of the same view; refreshes the host mirrors
         ``_ensure_pages`` plans from."""
-        c = self.carry
-        flags = {k: c[k].cpu().numpy() for k in self._FLAG_KEYS}
+        snap = device_get(handles)
+        flags = snap["flags"]
         if self.paged:
-            flags["pos"] = c["state"]["t_cache"]["pos"].cpu().numpy()
             self._pos_host[:] = flags["pos"]
         self._done_host[:] = flags["done"]
-        live = [b for b, s in enumerate(self.slots) if s.phase == DECODING]
-        rows: Dict[int, Dict[str, np.ndarray]] = {}
-        if live:
-            idx = torch.as_tensor(live, device=self.dev)
-            got = {k: c[k][idx].cpu().numpy() for k in self._ROW_KEYS}
-            rows = {b: {k: got[k][i] for k in self._ROW_KEYS}
-                    for i, b in enumerate(live)}
-        return {"flags": flags, "rows": rows}
+        return snap
 
     def _stream_events(self, snap, t_now: float
                        ) -> Iterator[Tuple[int, int, dict]]:
@@ -986,10 +1049,13 @@ class Scheduler:
     def _flush(self, snap) -> List[RequestResult]:
         """Collect every DECODING slot whose ``done`` flag is set in the
         round's snapshot: trim its rows, build the RequestResult, free the
-        slot.  A paged slot drops its page references and its table row is
-        nulled: the freed slot keeps riding the loop done-masked, and its
-        frozen writes must land in the null page, not in pages that may be
-        reallocated to a new request."""
+        slot (no device transfer: the rows came with the snapshot; under
+        ``overlap`` a slot finishing inside the in-flight chunk flushes a
+        round later, from rows the loop has frozen).  A paged slot drops
+        its page references and its table row is nulled: the freed slot
+        keeps riding the loop done-masked, and its frozen writes must land
+        in the null page, not in pages that may be reallocated to a new
+        request."""
         flags = snap["flags"]
         out: List[RequestResult] = []
         for b, slot in enumerate(self.slots):
@@ -997,7 +1063,8 @@ class Scheduler:
                 continue
             slot.phase = DRAINED
             n = int(flags["lens"][b])
-            row = {k: v[:n] for k, v in snap["rows"][b].items()}
+            # copies: a result must not hold the round's pinned buffers
+            row = {k: v[:n].copy() for k, v in snap["rows"][b].items()}
             req = slot.request
             arrivals = np.asarray(self._arrivals.pop(req.uid, []),
                                   np.float64)
@@ -1058,11 +1125,17 @@ class Scheduler:
         ``round``, the visibility time ``t_rel_s`` after submit, and
         ``final`` on a request's last token).  Per round: a prefill chunk
         for every PREFILLING slot (paged), page growth, a decode chunk,
-        then the host work — snapshot, streaming, flush, admission."""
+        then the host work — one transfer, streaming, flush, admission.
+        With ``overlap`` the transfer's copies are enqueued before the
+        chunk (its input), so its wait never includes the chunk; without
+        it they follow the chunk (its output)."""
         # every round flushes a request, admits a prompt chunk or advances
         # >= 1 committed token on some live slot, so this bound is reached
-        # only if the scheduler deadlocks
+        # only if the scheduler deadlocks; under overlap each flush wave
+        # trails the chunk that finished it by one round
         limit = 4 + 2 * len(self.queue) + self._total_target
+        if self.overlap:
+            limit += 1 + len(self.queue)
         if self.paged:
             limit += self._total_chunks
         rounds = 0
@@ -1079,8 +1152,13 @@ class Scheduler:
             if self.paged:
                 self._prefill_step()
                 self._ensure_pages()
-            self._run_chunk()
-            snap = self._take_snapshot()
+            if self.overlap:
+                handles = self._snap_handles(self.carry)
+                self._run_chunk()
+            else:
+                self._run_chunk()
+                handles = self._snap_handles(self.carry)
+            snap = self._take_snapshot(handles)
             yield from self._stream_events(snap, time.perf_counter())
             self._flush(snap)
             self._admit()

@@ -26,7 +26,9 @@ the kernel forward, the plain version replayed backward) against autograd
 straight through the plain version, within ref.replay_grad_tol; 3 fit
 steps of a smoke Zamba2 (ssm.chunk 8) on the card against the CPU, each
 loss within rtol 1e-4 (AdamW's g / (|g| + eps) turns the last bits of a
-gradient near 0 into a visible step; the CPU parity test holds the same)."""
+gradient near 0 into a visible step; the CPU parity test holds the same).
+Serving: overlap on equals overlap off bit for bit, one device_get a
+sync round."""
 import numpy as np
 import pytest
 import torch
@@ -814,3 +816,45 @@ def test_fit_on_the_card_matches_the_cpu(cuda):
         if dev == "cuda":
             assert ops.LAUNCHES["ssd"] == 3 * cfg.n_layers
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_overlap_serving_changes_no_bit(cuda, monkeypatch, paged):
+    """The double-buffered loop on the card: serving with overlap on
+    equals overlap off bit for bit (paged: with a prefix cache and the
+    doubled horizon), one ``device_get`` a sync round, and the snapshot's
+    host copies land in pinned memory."""
+    from repro_torch.configs import TINY_DRAFT, TINY_TARGET
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import scheduler as S
+    from repro_torch.serve.config import ServeConfig
+    models = [init_params(c, seed=s, device=cuda)
+              for c, s in ((TINY_TARGET, 3), (TINY_DRAFT, 4))]
+    rng = np.random.default_rng(2)
+    system = rng.integers(1, 256, 9)
+    reqs = [(np.concatenate([system if i % 2 else [], rng.integers(
+        1, 256, int(rng.integers(3, 8)))]).astype(np.int32),
+        int(rng.integers(4, 13))) for i in range(6)]
+    real, gets = S.device_get, []
+
+    def counted(handles):
+        gets.append(all(t.is_pinned() for t in handles["flags"].values()))
+        return real(handles)
+    monkeypatch.setattr(S, "device_get", counted)
+    kw = dict(page_size=4, num_pages=80, prefill_chunk=4,
+              prefix_cache=True) if paged else {}
+    out = []
+    for overlap in (False, True):
+        gets.clear()
+        stats = {}
+        out.append(E.serve_requests(
+            *models, E.SpecConfig(K=3, watermark="synthid", m=12), reqs,
+            config=ServeConfig(batch=2, key=7, sync_every=2,
+                               overlap=overlap, **kw), stats_out=stats))
+        assert len(gets) == stats["sync_rounds"] and all(gets)
+    for a, b in zip(*out):
+        for f in ("tokens", "src", "u", "ctx_hashes", "masked", "y_draft",
+                  "y_target"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

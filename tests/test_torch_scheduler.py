@@ -19,6 +19,7 @@ across by repro_torch.convert.
   extent, and PyTorch's CPU softmax may round the last bit differently
   over another extent.
 """
+import asyncio
 import dataclasses
 
 import jax
@@ -66,6 +67,15 @@ def pair():
     dm = convert.from_jax_tree(jax.tree.map(np.asarray, dp),
                                _port_cfg(JP.TINY_DRAFT), device="cpu")
     return tp, dp, tm, dm
+
+
+@pytest.fixture(scope="module")
+def port_pair():
+    """The TINY pair from the port's own seeded init, for the tests that
+    run no reference: a worker that runs only those skips JAX's init."""
+    from repro_torch.models.model import init_params
+    return (init_params(_port_cfg(JP.TINY_TARGET), seed=0, device="cpu"),
+            init_params(_port_cfg(JP.TINY_DRAFT), seed=1, device="cpu"))
 
 
 def _requests(seed, n=5):
@@ -236,8 +246,8 @@ def test_scheduler_order_and_events_match_reference(pair, mode):
 
 
 @pytest.mark.parametrize("mode", ["dense", "paged", "prefix"])
-def test_served_equals_solo_generate(pair, mode):
-    _, _, tm, dm = pair
+def test_served_equals_solo_generate(port_pair, mode):
+    tm, dm = port_pair
     reqs = _requests(3, n=6)
     keys = [11, 2**32 - 3, 11, 5, 12345, 7]
     scfg = TE.SpecConfig(K=3, watermark="synthid", m=12)
@@ -295,20 +305,31 @@ def test_key_pool_and_config_match_reference():
         set(JC.LEGACY_KWARGS) - {"shard_params"}
 
 
-def test_unported_options_raise(pair):
-    _, _, tm, dm = pair
+def test_unported_options_raise(port_pair):
+    tm, dm = port_pair
     scfg = TE.SpecConfig(K=3)
-    for kw in (dict(mesh=object()), dict(overlap=True)):
-        with pytest.raises(NotImplementedError):
-            TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4, **kw)
     with pytest.raises(NotImplementedError):
-        TE.serve_stream(tm, dm, scfg, [])
+        TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4,
+                     mesh=object())
+
+    async def stream():
+        async for _ in TE.serve_stream(
+                tm, dm, scfg, _requests(1),
+                config=TC.ServeConfig(batch=2, key=0, mesh=object())):
+            pass
+    with pytest.raises(NotImplementedError):
+        asyncio.run(stream())
     with pytest.raises(ValueError):
         TS.Scheduler(tm, dm, TE.SpecConfig(accept="standard"), batch=2,
                      key=0, max_tokens=4)
-    # config=ServeConfig(...) is the one surface: no keyword-argument shim
+    # the keyword-argument shim refuses shard_params (it acts only with a
+    # mesh) and a mix with config=; the Scheduler takes no shard_params
+    with pytest.raises(NotImplementedError):
+        TE.serve_requests(tm, dm, scfg, [], batch=2, key=0,
+                          shard_params=False)
     with pytest.raises(TypeError):
-        TE.serve_requests(tm, dm, scfg, [], batch=2, key=0)
+        TE.serve_requests(tm, dm, scfg, [],
+                          config=TC.ServeConfig(batch=2, key=0), batch=2)
     with pytest.raises(TypeError):
         TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4,
                      shard_params=False)
