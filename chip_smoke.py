@@ -58,14 +58,15 @@ Phases, each fatal on failure, in this order:
      separate run: its synchronizes stay out of the timed one);
   3c. recurrent drafting at full width: LLAMA_7B with rwkv6-3b (vocab
      32000) and zamba2-1.2b drafts, bf16, ssm.chunk 128: generate (B=4,
-     prompt 200, 48 tokens; gumbel and synthid for RWKV6, gumbel for
-     Zamba2), paged serve_requests with RWKV6 (16 requests, 8 slots, no
-     prefix cache) and dense serve_requests with Zamba2 (8 requests, 4
+     prompt 200, 24 tokens; gumbel and synthid for RWKV6, gumbel for
+     Zamba2), paged serve_requests with RWKV6 (12 requests, 8 slots, no
+     prefix cache) and dense serve_requests with Zamba2 (6 requests, 4
      slots); ms per step, kernels per step, idle share, draft state bytes,
      launch counts per path;
   (the traces of phases 3, 3b and 3c are windows of each cell's own load:
      PROFILE_TOKENS more tokens continuing a finished generate, or
-     TRACE_ROUNDS sync rounds of serving once every slot holds a request
+     TRACE_ROUNDS sync rounds of serving (3c: REC_PROFILE_TOKENS and
+     REC_TRACE_ROUNDS) once every slot holds a request
      and a first request has finished);
   4. the TINY pair in fp32, generate on the CPU (plain versions) against
      generate on the card (kernels);
@@ -847,11 +848,11 @@ class _WindowClosed(Exception):
     pass
 
 
-def traced_serve(target, draft, scfg, reqs, cfg):
+def traced_serve(target, draft, scfg, reqs, cfg, rounds=TRACE_ROUNDS):
     """A window of serving at the cell's own load: the requests go through
     a Scheduler whose trace opens at the first sync round in which every
     slot holds a request and a first request has finished (the steady
-    state: finished slots refilled from the queue), and closes TRACE_ROUNDS
+    state: finished slots refilled from the queue), and closes ``rounds``
     rounds later (or when the queue drains), which cuts the run.  Adds the
     rounds traced and the mean number of decoding slots per round."""
     from repro_torch.serve import scheduler as S
@@ -860,7 +861,7 @@ def traced_serve(target, draft, scfg, reqs, cfg):
 
     class WindowScheduler(S.Scheduler):
         def _run_chunk(self):
-            if win.prof is not None and st["rounds"] == TRACE_ROUNDS:
+            if win.prof is not None and st["rounds"] == rounds:
                 close(self)
                 raise _WindowClosed
             if (win.prof is None and st["out"] is None and self.results
@@ -906,7 +907,8 @@ PAGE_SIZE = 16
 # kimi-like GQA verify (kimi_k2_1t_a32b: H=64, Hkv=8, hd 112) at page size
 # 12, a gemma-like verify (gemma-7b: H=Hkv=16, hd 256) and a target verify
 # at 4096 positions (past the kernel's 1024 kept scores, so its pass two
-# recomputes scores)
+# recomputes scores); a nemotron-like verify (nemotron-4-340b: H=96,
+# Hkv=8, hd 192, phase 8's paged serving)
 PAGED_CASES = [
     ("target verify", 8, 5, 32, 32, 128, PAGE_SIZE, (17, 1000)),
     ("prefill chunk", 2, 32, 32, 32, 128, PAGE_SIZE, (97, 97)),
@@ -915,7 +917,23 @@ PAGED_CASES = [
     ("kimi gqa", 8, 5, 64, 8, 112, 12, (17, 1000)),
     ("gemma verify", 8, 5, 16, 16, 256, PAGE_SIZE, (17, 1000)),
     ("long row", 2, 5, 32, 32, 128, PAGE_SIZE, (4096, 4096)),
+    ("nemotron verify", 4, 5, 96, 8, 192, PAGE_SIZE, (17, 1000)),
 ]
+# the sliding window (yi-6b-swa4k: H=32, Hkv=4, hd 128, window 4096) at a
+# 4,600-position row, at the verify and the prefill-chunk (256) shapes,
+# and window 8 at Sq=32, where queries 0-23 have no key and average v
+# over the slice: (case, B, Sq, H, Hkv, hd, page size, pos range, window)
+PAGED_WINDOW_CASES = [
+    ("swa verify w4096", 4, 5, 32, 4, 128, PAGE_SIZE, (4600, 4600), 4096),
+    ("swa chunk w4096", 2, 256, 32, 4, 128, PAGE_SIZE, (4600, 4600), 4096),
+    ("swa chunk w8", 2, 32, 32, 4, 128, PAGE_SIZE, (97, 97), 8),
+]
+# the windowed cases' bf16 bound allows this many flips a row, not the
+# fixed cases' 2: over 8 seeds of each paged case (scripts/paged_flips.py)
+# the most a row needed was 2.195 flips, one row of the 256-query chunk
+# at window 4096 on this script's seed (131,072 rows); every other case
+# and seed stayed within 0.69
+PAGED_WINDOW_FLIPS = 3
 
 
 def paged_inputs(B, Sq, H, Hkv, hd, ps, pos_range, dtype, seed):
@@ -939,45 +957,41 @@ def paged_inputs(B, Sq, H, Hkv, hd, ps, pos_range, dtype, seed):
     return q, k, v, table.to(DEV), pos.to(DEV)
 
 
-def paged_bound(q, k, table, pos):
+def paged_bound(q, k, table, pos, window=0):
     """Bytes: the k/v positions some row of a slot attends, once per
     (slot, kv head), their table entries, pos, q and out; operations: q·k
-    and p·v of each row over the positions it attends (the whole extent
-    for a row with none valid), at the rate of the inputs' type."""
+    and p·v of each row over the positions it attends (its keys, or the
+    positions its softmax averages, for a row with none valid:
+    ``layers.window_mask``), at the rate of the inputs' type."""
     import torch
+    from repro_torch.models import layers as L
     B, Sq, H, hd = q.shape
     ps, Hkv = k.shape[1], k.shape[2]
     el = q.element_size()
-    extent = table.shape[1] * ps
-
-    def n_att(p):
-        return extent if p <= 0 else min(extent, p)
-    n_pos = [max(n_att(p + i) for i in range(Sq)) for p in pos.tolist()]
+    valid, present = L.window_mask(pos, Sq, table.shape[1] * ps, window)
+    att = valid | (present & ~valid.any(-1, keepdim=True))
+    n_pos = att.any(1).sum(-1).tolist()
     nbytes = (sum(n * 2 * Hkv * hd * el + 8 * -(-n // ps) for n in n_pos)
               + 8 * B + 2 * q.numel() * el)
-    nops = sum(4 * H * hd * n_att(p + i) for p in pos.tolist()
-               for i in range(Sq))
+    nops = 4 * H * hd * int(att.sum())
     rate = FP32_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = nops / rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def sdpa_yardstick(q, k, v, table, pos):
+def sdpa_yardstick(q, k, v, table, pos, window=0):
     """One scaled_dot_product_attention call over the pre-gathered dense
-    k/v (GQA heads expanded) with the same boolean mask: a yardstick only —
-    the gather is not timed and the port never calls SDPA."""
-    import torch
+    k/v (GQA heads expanded) with the same boolean mask (the keys of each
+    query, ``layers.window_mask``): a yardstick only — the gather is not
+    timed and the port never calls SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    B, Sq, H, _ = q.shape
-    n_rep = H // k.shape[2]
+    from repro_torch.models import layers as L
+    n_rep = q.shape[2] // k.shape[2]
     kd = ref.paged_gather(k, table).repeat_interleave(n_rep, 2)
     vd = ref.paged_gather(v, table).repeat_interleave(n_rep, 2)
-    ext = kd.shape[1]
-    lim = pos[:, None] + torch.arange(Sq, device=q.device)[None]
-    mask = (torch.arange(ext, device=q.device)[None, None]
-            < lim[:, :, None])[:, None]
+    mask = L.window_mask(pos, q.shape[1], kd.shape[1], window)[0][:, None]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kd, vd))
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
@@ -1004,24 +1018,31 @@ def paged_faults(args, want, tol):
 
 
 def phase_paged_kernel():
-    """Every paged case in bf16 and fp32 against the plain version.  fp32:
-    max abs error within 1e-5 (another order of float sums).  bf16: each
-    element within ref.paged_attention_tol — two bf16 ulps of the element
-    plus two flips of the row's worst score or probability rounding, the
-    most another sum order can move it — and the same tolerance must see an
-    off-by-one mask and a wrong page on the longest row.  The kernel's, the
-    plain version's and SDPA's times beside the bound."""
+    """Every paged case in bf16 and fp32 against the plain version, the
+    windowed cases with their window.  fp32: max abs error within 1e-5
+    (another order of float sums).  bf16: each element within
+    ref.paged_attention_tol — two bf16 ulps of the element plus two flips
+    (windowed: PAGED_WINDOW_FLIPS) of the row's worst score or probability
+    rounding, the most another sum order can move it; the flips each case
+    needed are recorded — and the same tolerance must see an off-by-one mask
+    and a wrong page on the longest row (windowed: an off-by-one on the
+    slice's first position, the kernel run at window + 1).  The kernel's,
+    the plain version's and SDPA's times beside the bound (windowed: and
+    the unwindowed kernel's time on the same inputs).  Each windowed
+    row alone equals its batch bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     record = []
-    for name, B, Sq, H, Hkv, hd, ps, pos_range in PAGED_CASES:
+    cases = ([c + (0,) for c in PAGED_CASES] + PAGED_WINDOW_CASES)
+    for name, B, Sq, H, Hkv, hd, ps, pos_range, window in cases:
         for dtype in (torch.bfloat16, torch.float32):
             args = paged_inputs(B, Sq, H, Hkv, hd, ps, pos_range, dtype,
                                 seed=B * Sq * H)
-            out = ops.paged_attention(*args)
+            w = dict(window=window) if window else {}
+            out = ops.paged_attention(*args, **w)
             torch.cuda.synchronize()
-            want = ref.paged_attention_ref(*args)
+            want = ref.paged_attention_ref(*args, **w)
             diff = (out.float() - want.float()).abs()
             err = float(diff.max())
             tag = f"paged_attention {name} {str(dtype)[6:]}"
@@ -1030,6 +1051,15 @@ def phase_paged_kernel():
             if dtype == torch.float32:
                 tol = torch.full_like(diff, 1e-5)
                 faults = {}
+            elif window:
+                tol = ref.paged_attention_tol(*args, want, window=window,
+                                              flips=PAGED_WINDOW_FLIPS)
+                off = float((((ops.paged_attention(*args, window=window + 1)
+                               .float() - want.float()).abs() / tol)
+                             [:-1]).max())
+                check(off > 1, f"{tag}: the tolerance misses an off-by-one "
+                      f"on the window's first position ({off})")
+                faults = dict(window_off_by_one_over_tol=off)
             else:
                 tol = ref.paged_attention_tol(*args, want)
                 off, page = paged_faults(args, want, tol)
@@ -1040,14 +1070,29 @@ def phase_paged_kernel():
             ratio = float((diff / tol).max())
             check(ratio <= 1, f"{tag}: max abs err {err}, {ratio} times "
                   f"its tolerance")
+            if dtype == torch.bfloat16:
+                faults["flips_needed"] = float(ref.paged_attention_flips(
+                    *args, out, want, window=window).max())
+            if window:
+                q, k, v, table, pos = args
+                for b in range(B):
+                    alone = ops.paged_attention(q[b:b + 1], k, v,
+                                                table[b:b + 1], pos[b:b + 1],
+                                                window=window)
+                    check(torch.equal(alone[0], out[b]),
+                          f"{tag}: row {b} alone differs from its batch")
+                faults["unwindowed_ms"] = device_ms(
+                    lambda: ops.paged_attention(*args),
+                    kernel="paged_attention_kernel")
             times = timings("paged_attention_kernel",
-                            lambda: ops.paged_attention(*args),
-                            lambda: ref.paged_attention_ref(*args))
-            bnd, by = paged_bound(args[0], args[1], args[3], args[4])
+                            lambda: ops.paged_attention(*args, **w),
+                            lambda: ref.paged_attention_ref(*args, **w))
+            bnd, by = paged_bound(args[0], args[1], args[3], args[4], window)
             record.append(dict(case=tag, max_abs_err=err, err_over_tol=ratio,
                                tol_median=float(tol.median()), **faults,
                                **times,
-                               library_ms=device_ms(sdpa_yardstick(*args), 10),
+                               library_ms=device_ms(
+                                   sdpa_yardstick(*args, window), 10),
                                bound_ms=bnd, bound_by=by))
     for r in record:
         print("kernel-check " + json.dumps(r))
@@ -1669,12 +1714,21 @@ def phase_stream(target, draft, serve_results, served):
 # Phase 3c: recurrent drafting at full width
 # ---------------------------------------------------------------------------
 
-REC_SLICE = dict(B=4, prompt=200, n_tokens=48, K=4, temperature=0.7,
+# depth cut to make room for phase 8: 24 tokens a generate row (was 48),
+# 12 paged requests of 16-32 tokens (was 16 of 16-64; more than the 8
+# slots, so the traced window finds every slot busy after a first request
+# finished), 6 dense ones over 4 slots (was 8), a one-request warm-up
+# before each serving run (was 2) and the shorter traced windows below
+REC_SLICE = dict(B=4, prompt=200, n_tokens=24, K=4, temperature=0.7,
                  chunk=128)
 REC_SERVE = dict(batch=8, page_size=PAGE_SIZE, prefill_chunk=32,
-                 sync_every=4, n_requests=16, prompt=(16, 256),
-                 n_tokens=(16, 64))
-REC_DENSE_SERVE = dict(batch=4, sync_every=4, n_requests=8)
+                 sync_every=4, n_requests=12, prompt=(16, 256),
+                 n_tokens=(16, 32))
+REC_DENSE_SERVE = dict(batch=4, sync_every=4, n_requests=6)
+# phase 3c's traced windows (each reads back ~240,000 events at the
+# dense cells' length): 6 generate tokens and 2 serving rounds
+REC_PROFILE_TOKENS = 6
+REC_TRACE_ROUNDS = 2
 REC_STATE_KEYS = ("wkv", "att_shift", "ffn_shift", "conv", "ssm")
 
 
@@ -1751,11 +1805,11 @@ def print_ssd_launches(by_path):
 
 def phase_recurrent(target):
     """LLAMA_7B with the rwkv6-3b and the zamba2-1.2b drafts in bf16 (random
-    weights from seed 2): generate (B=4, prompt 200, 48 tokens; gumbel and
+    weights from seed 2): generate (B=4, prompt 200, 24 tokens; gumbel and
     synthid for RWKV6, gumbel for Zamba2), paged serve_requests with the
-    RWKV6 draft (16 requests, 8 slots, no prefix cache: a recurrent draft's
+    RWKV6 draft (12 requests, 8 slots, no prefix cache: a recurrent draft's
     state must see the whole prompt) and dense serve_requests with the
-    Zamba2 draft (8 requests, 4 slots: a hybrid draft has no chunked
+    Zamba2 draft (6 requests, 4 slots: a hybrid draft has no chunked
     admission).  Returns the launch counts by path and the results; the
     recurrent kernels must have run on their paths."""
     import torch
@@ -1807,8 +1861,8 @@ def phase_recurrent(target):
                 draft_state_bytes_per_slot=state_bytes(d_cache, len(keys)),
                 draft_logit_peaks=peaks, launches=launches,
                 profile=profile_generate(lambda: E.generate(
-                    target, draft, scfg, prompts, n_tokens=PROFILE_TOKENS,
-                    key=keys, state=r.state)))
+                    target, draft, scfg, prompts,
+                    n_tokens=REC_PROFILE_TOKENS, key=keys, state=r.state)))
             print(f"{path}: " + json.dumps(results[path]))
         scfg = E.SpecConfig(K=K, watermark="gumbel",
                             temperature=REC_SLICE["temperature"])
@@ -1832,7 +1886,8 @@ def phase_recurrent(target):
                               sync_every=c["sync_every"])
             path = "serve_requests zamba2 dense"
         t0 = time.perf_counter()
-        E.serve_requests(target, draft, scfg, reqs[:2], config=cfg)
+        E.serve_requests(target, draft, scfg,
+                         [min(reqs, key=lambda r: len(r[0]))], config=cfg)
         warm_s = time.perf_counter() - t0
         stats = {}
         res, secs, launches = run_counted(lambda: E.serve_requests(
@@ -1854,12 +1909,15 @@ def phase_recurrent(target):
             prefill_chunks=stats.get("prefill_chunks"),
             aatps=stats["aatps"], launches=launches,
             max_prompt=max(len(p) for p, _ in reqs), warmup_s=warm_s,
-            profile=traced_serve(target, draft, scfg, reqs, cfg))
+            profile=traced_serve(target, draft, scfg, reqs, cfg,
+                                 rounds=REC_TRACE_ROUNDS))
         print(f"{path}: " + json.dumps(results[path]))
         del draft
         torch.cuda.empty_cache()
     print_ssd_launches(by_path)
     need = {"generate rwkv6 gumbel": ("wkv", "wkv_step"),
+            "generate rwkv6 synthid": ("wkv", "wkv_step", "tournament_keyed",
+                                       "spec_verify_wm_tournament"),
             "serve_requests rwkv6 paged": ("wkv", "wkv_step"),
             "generate zamba2 gumbel": ("ssd", "ssd_step"),
             "serve_requests zamba2 dense": ("ssd_step",)}
@@ -1908,7 +1966,9 @@ def phase_tiny_recurrent():
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cpu").manual_seed(17)
     prompts = torch.randint(1, TINY_TARGET.vocab, (4, 20), generator=g).numpy()
-    reqs = serve_workload(19, 8, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
+    # 24 tokens a generate row and 6 requests (were 40 and 8: cut to make
+    # room for phase 8)
+    reqs = serve_workload(19, 6, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
     margin_rows = n_rows = 0
     counts = {}
     for name, dcfg in tiny_recurrent_drafts().items():
@@ -1918,9 +1978,9 @@ def phase_tiny_recurrent():
                init_params(dcfg, seed=5, device="cpu").to(DEV)]
         for wm in ("gumbel", "synthid"):
             scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
-            rc = E.generate(*cpu, scfg, prompts, n_tokens=40, key=99)
+            rc = E.generate(*cpu, scfg, prompts, n_tokens=24, key=99)
             rg, _, launches = run_counted(lambda: E.generate(
-                *gpu, scfg, prompts, n_tokens=40, key=99))
+                *gpu, scfg, prompts, n_tokens=24, key=99))
             counts[f"tiny generate {name} {wm}"] = launches
             for b in range(prompts.shape[0]):
                 j = divergence.first_divergence(rc, rg, b)
@@ -1997,7 +2057,8 @@ def phase_tiny_serve():
            for c, s in ((TINY_TARGET, 3), (TINY_DRAFT, 4))]
     gpu = [m.to(DEV) for m in (init_params(TINY_TARGET, seed=3, device="cpu"),
                                init_params(TINY_DRAFT, seed=4, device="cpu"))]
-    reqs = serve_workload(9, 10, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
+    # 7 requests (was 10: cut to make room for phase 8)
+    reqs = serve_workload(9, 7, (4, 40), (8, 24), TINY_TARGET.vocab, 12)
     modes = {"dense": dict(),
              "paged": dict(page_size=4, num_pages=120, prefill_chunk=8,
                            prefix_cache=True)}
@@ -2832,6 +2893,381 @@ def phase_launch():
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the other families (MoE, sliding window, VLM, audio, sqrelu)
+# ---------------------------------------------------------------------------
+
+# bf16, random weights from seeds, K=4, T=0.7; depth cuts are listed here
+# and in PERF.md §4
+FAM = dict(K=4, temperature=0.7)
+OLMOE_GEN = dict(B=4, prompt=16, n_tokens=48)
+OLMOE_SERVE = dict(n_requests=16, prompt=(16, 128), system=32,
+                   n_tokens=(16, 32), alone=2)
+SWA_SERVE = dict(n_requests=4, prompt=(4300, 4500), n_tokens=32, batch=4,
+                 prefill_chunk=256)
+SWA_GEN = dict(B=2, prompt=4300, n_tokens=32)
+VLM_GEN = dict(B=2, prompt=16, n_tokens=32)
+CUT_DEPTH = {"nemotron-4-340b": 1, "kimi-k2-1t-a32b": 1}   # full width
+CUT_SERVE = dict(n_requests=4, prompt=(16, 48), n_tokens=16, batch=4)
+FAM_KERNELS = ("spec_verify_wm", "spec_verify_wm_tournament",
+               "gumbel_argmax", "tournament_keyed", "paged_attention")
+
+
+def fam_models(name, n_layers=None):
+    """The arch's config (depth cut to ``n_layers`` where given) with
+    ``draft_for``'s draft (under the target's window), bf16 on the card,
+    seeds 0 and 1 -> (target, draft)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import draft_for, get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    target = init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    draft = init_params(draft_for(cfg, window=cfg.window), seed=1,
+                        dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in target.parameters())
+    print(f"{name}: {cfg.n_layers} layers, {n / 1e9:.3f} B parameters "
+          f"(config {cfg.param_count() / 1e9:.3f} B, active "
+          f"{cfg.active_param_count() / 1e9:.3f} B), made in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return target, draft
+
+
+def fam_frames(cfg, B, dtype, device):
+    """The stub frontends' frame embeddings of an audio / VLM target
+    (None for the text families)."""
+    from repro_torch.models.model import example_batch, extras_of
+    return extras_of(example_batch(cfg, B, 1, seed=3, dtype=dtype,
+                                   device=device))
+
+
+def fam_generate(path, target, draft, wm, prompts, n, extras=None):
+    """A warm-up, then ``generate`` counted -> (result, numbers,
+    launches)."""
+    from repro_torch.serve import engine as E
+    scfg = E.SpecConfig(K=FAM["K"], watermark=wm,
+                        temperature=FAM["temperature"])
+    keys = [0x1234 + i for i in range(prompts.shape[0])]
+    E.generate(target, draft, scfg, prompts[:, :8], n_tokens=4, key=keys,
+               extras=extras)
+    r, secs, launches = run_counted(lambda: E.generate(
+        target, draft, scfg, prompts, n_tokens=n, key=keys, extras=extras))
+    V = target.cfg.vocab
+    check(bool(((r.lengths >= n) & (r.lengths <= n + FAM["K"])).all()),
+          f"{path}: lengths {r.lengths}")
+    check(bool(((r.tokens[:, :n] >= 0) & (r.tokens[:, :n] < V)).all()),
+          f"{path}: token out of range")
+    out = dict(seconds=secs, n_steps=r.n_steps,
+               ms_per_step=secs / r.n_steps * 1e3,
+               tokens_per_s=float(r.lengths.sum()) / secs, aatps=r.aatps,
+               launches={k: launches[k] for k in FAM_KERNELS})
+    print(f"{path}: " + json.dumps(out))
+    return r, out, launches
+
+
+def fam_serve(path, target, draft, reqs, cfg, wm="gumbel"):
+    """A warm-up, then paged ``serve_requests`` counted; the pool must
+    drain to what the prefix cache holds -> (results, numbers, launches,
+    the SpecConfig)."""
+    from repro_torch.serve import engine as E
+    scfg = E.SpecConfig(K=FAM["K"], watermark=wm,
+                        temperature=FAM["temperature"])
+    E.serve_requests(target, draft, scfg, reqs[:1], config=cfg)
+    stats = {}
+    res, secs, launches = run_counted(lambda: E.serve_requests(
+        target, draft, scfg, reqs, config=cfg, stats_out=stats))
+    V = target.cfg.vocab
+    check(len(res) == len(reqs), f"{path}: {len(res)} results")
+    for r, (p, nt) in zip(res, reqs):
+        check(nt <= r.length <= nt + FAM["K"],
+              f"{path}: uid {r.uid} length {r.length}, target {nt}")
+        check(bool(((r.tokens >= 0) & (r.tokens < V)).all()),
+              f"{path}: token out of range")
+    check(stats["pages_used"] == stats["prefix_pages"],
+          f"{path}: {stats['pages_used']} pages used at the end, "
+          f"{stats['prefix_pages']} held by the prefix cache")
+    check(launches["paged_attention"] > 0,
+          f"{path}: paged_attention never launched")
+    n_steps = int(stats["spec_steps"])
+    n_tok = int(sum(r.length for r in res))
+    out = dict(seconds=secs, requests_per_s=len(res) / secs,
+               tokens_per_s=n_tok / secs, tokens=n_tok, n_steps=n_steps,
+               ms_per_step=secs / n_steps * 1e3,
+               ttft_mean_s=stats["ttft_mean_s"],
+               prefill_chunks=int(stats["prefill_chunks"]),
+               aatps=stats["aatps"], pages_peak=stats["pages_peak"],
+               num_pages=cfg.num_pages,
+               launches={k: launches[k] for k in FAM_KERNELS})
+    print(f"{path}: " + json.dumps(out))
+    return res, out, launches, scfg
+
+
+def olmoe_full(by_path, results):
+    """olmoe-1b-7b at full width and depth: generate (gumbel, synthid),
+    the prefill's dropped share, paged serving with a prefix cache, and
+    requests served alone equal to the same requests in the batch."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve import engine as E
+    target, draft = fam_models("olmoe-1b-7b")
+    cfg = target.cfg
+    g = torch.Generator(device="cpu").manual_seed(31)
+    prompts = torch.randint(1, cfg.vocab, (OLMOE_GEN["B"],
+                                           OLMOE_GEN["prompt"]),
+                            generator=g).numpy()
+    for wm in ("gumbel", "synthid"):
+        path = f"olmoe-1b-7b generate {wm}"
+        _, results[path], by_path[path] = fam_generate(
+            path, target, draft, wm, prompts, OLMOE_GEN["n_tokens"])
+    target.prefill(torch.as_tensor(prompts, device=DEV), prompts.shape[1])
+    drop = float(target.last_aux["dropped_frac"])
+    T = int(prompts.size)
+    results["olmoe-1b-7b prefill"] = dict(
+        dropped_frac=drop, tokens=T, capacity=moe.capacity(T, cfg.moe))
+    print(f"olmoe-1b-7b prefill: B={OLMOE_GEN['B']} x "
+          f"{OLMOE_GEN['prompt']} tokens, capacity "
+          f"{moe.capacity(T, cfg.moe)}, dropped_frac {drop:.4f} (mean over "
+          "the layers; serving's extend is dropless)")
+    c = OLMOE_SERVE
+    reqs = serve_workload(41, c["n_requests"], c["prompt"], c["n_tokens"],
+                          cfg.vocab, c["system"])
+    conf = serve_config(reqs)
+    path = "olmoe-1b-7b serve_requests paged"
+    res, results[path], by_path[path], scfg = fam_serve(
+        path, target, draft, reqs, conf)
+    # a request served alone (the same slots, the others idle) against the
+    # batch: admission and extend are dropless, so no row sees another
+    margin = 0
+    for i in range(c["alone"]):
+        alone = E.serve_requests(target, draft, scfg, [reqs[i]],
+                                 config=conf)[0]
+        margin += compare_requests(res[i].as_generation_result(),
+                                   alone.as_generation_result(),
+                                   (target, draft), scfg, reqs[i][0],
+                                   f"{path} uid {i} alone")
+    results[path]["alone_margin_rows"] = margin
+    print(f"{path}: {c['alone']} requests alone equal the batch outside "
+          f"{margin} margin rows")
+    return target, draft
+
+
+def swa_full(by_path, results):
+    """yi-6b-swa4k at full width and depth with prompts past its window:
+    paged serving (chunks of 256, a table wider than 4096 positions) and
+    generate."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.config import ServeConfig
+    target, draft = fam_models("yi-6b-swa4k")
+    cfg = target.cfg
+    c = SWA_SERVE
+    rng = np.random.default_rng(43)
+    reqs = [(rng.integers(1, cfg.vocab, int(rng.integers(*c["prompt"])))
+             .astype(np.int32), c["n_tokens"])
+            for _ in range(c["n_requests"])]
+    base = serve_config(reqs, batch=c["batch"],
+                            prefill_chunk=c["prefill_chunk"])
+    conf = ServeConfig(batch=base.batch, key=base.key,
+                       page_size=base.page_size, num_pages=base.num_pages,
+                       prefill_chunk=base.prefill_chunk,
+                       sync_every=base.sync_every, prefix_cache=True)
+    max_pos = max(len(p) for p, _ in reqs) + c["n_tokens"]
+    check(max_pos > cfg.window, "yi-6b-swa4k: the rows must pass the window")
+    path = "yi-6b-swa4k serve_requests paged"
+    _, results[path], by_path[path], _ = fam_serve(path, target, draft,
+                                                   reqs, conf)
+    g = torch.Generator(device="cpu").manual_seed(44)
+    prompts = torch.randint(1, cfg.vocab, (SWA_GEN["B"], SWA_GEN["prompt"]),
+                            generator=g).numpy()
+    path = "yi-6b-swa4k generate gumbel"
+    _, results[path], by_path[path] = fam_generate(
+        path, target, draft, "gumbel", prompts, SWA_GEN["n_tokens"])
+    return target, draft
+
+
+def frames_full(name, wm, by_path, results):
+    """A VLM / audio target at full size through generate(extras=...)."""
+    import torch
+    target, draft = fam_models(name)
+    cfg = target.cfg
+    g = torch.Generator(device="cpu").manual_seed(45)
+    prompts = torch.randint(1, cfg.vocab, (VLM_GEN["B"], VLM_GEN["prompt"]),
+                            generator=g).numpy()
+    path = f"{name} generate {wm}"
+    _, results[path], by_path[path] = fam_generate(
+        path, target, draft, wm, prompts, VLM_GEN["n_tokens"],
+        extras=fam_frames(cfg, VLM_GEN["B"], torch.bfloat16, DEV))
+    return target, draft
+
+
+def cut_full(name, by_path, results):
+    """Full width, depth cut (``CUT_DEPTH``): paged serving of 4 requests
+    and a short generate."""
+    import torch
+    target, draft = fam_models(name, CUT_DEPTH[name])
+    cfg = target.cfg
+    c = CUT_SERVE
+    reqs = serve_workload(47, c["n_requests"], c["prompt"],
+                          (c["n_tokens"], c["n_tokens"]), cfg.vocab, 16)
+    path = f"{name} serve_requests paged"
+    _, results[path], by_path[path], _ = fam_serve(
+        path, target, draft, reqs, serve_config(reqs, batch=c["batch"]))
+    g = torch.Generator(device="cpu").manual_seed(46)
+    prompts = torch.randint(1, cfg.vocab, (2, 16), generator=g).numpy()
+    path = f"{name} generate gumbel"
+    _, results[path], by_path[path] = fam_generate(
+        path, target, draft, "gumbel", prompts, c["n_tokens"])
+    return target, draft
+
+
+def fam_smoke_pairs():
+    """The CPU and card copies (fp32, the same seeds) of the smoke pairs:
+    olmoe's (an MoE draft too), yi-6b-swa4k's with its window cut to 8 so
+    it binds, and the VLM's and the audio model's with a dense draft."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    V = 256
+    small = dict(vocab=V, n_layers=1, d_model=64, d_ff=128, n_heads=2,
+                 n_kv_heads=2, head_dim=32)
+    pairs = {
+        "olmoe": (get_smoke_config("olmoe-1b-7b", vocab=V),
+                  get_smoke_config("olmoe-1b-7b", **small)),
+        "yi-6b-swa4k": (get_smoke_config("yi-6b-swa4k", vocab=V, window=8),
+                        get_smoke_config("yi-6b-swa4k", window=8, **small)),
+        "vlm": (get_smoke_config("llama-3.2-vision-11b", vocab=V),
+                get_smoke_config("yi-6b", **small)),
+        "audio": (get_smoke_config("whisper-tiny", vocab=V),
+                  get_smoke_config("yi-6b", **small))}
+    return {name: ([init_params(c, seed=s, device="cpu")
+                    for c, s in ((tc, 5), (dc, 6))],
+                   [init_params(c, seed=s, device="cpu").to(DEV)
+                    for c, s in ((tc, 5), (dc, 6))])
+            for name, (tc, dc) in pairs.items()}
+
+
+def expert_choices(model, tokens):
+    """The expert ids each MoE layer of ``model``'s prefill picks, and the
+    near-tie flags of their rows (the k-th and (k+1)-th router
+    probabilities within 1e-6)."""
+    import torch
+    from repro_torch.models import moe, transformer
+    seen = []
+    real = transformer.apply_moe
+
+    def spy(params, cfg, x, act, **kw):
+        probs, _, eids = moe.route(x.reshape(-1, x.shape[-1]),
+                                   params["router"], cfg.top_k)
+        top = torch.sort(probs, -1, descending=True).values
+        gap = (top[:, :cfg.top_k] - top[:, 1:cfg.top_k + 1]).abs()
+        seen.append((eids.cpu(), (gap.min(-1).values < 1e-6).cpu()))
+        return real(params, cfg, x, act, **kw)
+
+    transformer.apply_moe = spy
+    try:
+        model.prefill(tokens.to(model.embed.device), tokens.shape[1])
+    finally:
+        transformer.apply_moe = real
+    return seen
+
+
+def phase_families_tiny():
+    """The smoke pairs on the CPU (plain versions) and on the card
+    (kernels) in fp32: generate (olmoe, yi-6b-swa4k, VLM, audio) and paged
+    serve_requests (olmoe, yi-6b-swa4k), tokens equal outside counted
+    margin rows; olmoe's expert choice equal outside near-tie rows."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import divergence
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pairs = fam_smoke_pairs()
+    prompts = np.random.default_rng(17).integers(1, 256, (3, 12))
+    margin = rows = 0
+    for name, (cpu, gpu) in pairs.items():
+        scfg = E.SpecConfig(K=4, watermark="gumbel", temperature=0.7)
+        ex_c = fam_frames(cpu[0].cfg, 3, torch.float32, "cpu")
+        ex_g = None if ex_c is None else {k: v.to(DEV)
+                                          for k, v in ex_c.items()}
+        rc = E.generate(*cpu, scfg, prompts, n_tokens=24, key=99,
+                        extras=ex_c)
+        rg = E.generate(*gpu, scfg, prompts, n_tokens=24, key=99,
+                        extras=ex_g)
+        for b in range(3):
+            j = divergence.first_divergence(rc, rg, b)
+            rows += 1
+            if j is None:
+                continue
+            row_ex = None if ex_c is None else {
+                k: v[b:b + 1] for k, v in ex_c.items()}
+            marg = divergence.decision_margin(*cpu, scfg, prompts[b], rc, b,
+                                              j, extras=row_ex)
+            check(marg < MARGIN_TOL, f"families tiny {name}: row {b} parts "
+                  f"at {j} with margin {marg}")
+            margin += 1
+        if name in ("olmoe", "yi-6b-swa4k"):
+            reqs = [(p, 16) for p in prompts] + [(prompts[0, :5], 12)]
+            conf = ServeConfig(batch=2, key=99, page_size=4, num_pages=60,
+                               prefill_chunk=4, sync_every=3)
+            sc = E.serve_requests(*cpu, scfg, reqs, config=conf)
+            sg = E.serve_requests(*gpu, scfg, reqs, config=conf)
+            for a, b, (p, _) in zip(sc, sg, reqs):
+                margin += compare_requests(
+                    a.as_generation_result(), b.as_generation_result(), cpu,
+                    scfg, p, f"families tiny {name} serve uid {a.uid}")
+                rows += 1
+    ids_c = expert_choices(pairs["olmoe"][0][0], torch.as_tensor(prompts))
+    ids_g = expert_choices(pairs["olmoe"][1][0], torch.as_tensor(prompts))
+    near = differ = 0
+    for (ec, nc), (eg, ng) in zip(ids_c, ids_g):
+        tie = nc | ng
+        near += int(tie.sum())
+        differ += int(((ec != eg).any(-1) & ~tie).sum())
+    check(differ == 0, f"families tiny olmoe: {differ} rows pick other "
+          "experts on the card outside near-ties")
+    out = dict(margin_rows=margin, rows=rows, expert_near_tie_rows=near,
+               expert_rows=sum(len(e) for e, _ in ids_c))
+    print(f"families tiny: margin rows {margin} of {rows}; olmoe expert "
+          f"choice equal, near-tie rows {near} of {out['expert_rows']}")
+    return out
+
+
+def phase_families():
+    """Phase 8: each family's full-size runs in turn (each pair freed
+    before the next), then the smoke pairs card against CPU.  Returns the
+    launch counts by path and the results; every path must have launched
+    the fused tail, and every serving path the paged kernel."""
+    import torch
+    by_path, results = {}, {}
+    runs = [lambda: olmoe_full(by_path, results),
+            lambda: swa_full(by_path, results),
+            lambda: frames_full("llama-3.2-vision-11b", "gumbel", by_path,
+                                results),
+            lambda: frames_full("whisper-tiny", "synthid", by_path, results),
+            lambda: cut_full("nemotron-4-340b", by_path, results),
+            lambda: cut_full("kimi-k2-1t-a32b", by_path, results)]
+    for run in runs:
+        t = time.perf_counter()
+        models = run()
+        del models
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"  ({time.perf_counter() - t:.1f} s)")
+    results["tiny"] = phase_families_tiny()
+    for path, c in by_path.items():
+        check(c["spec_verify_wm"] + c["spec_verify_wm_tournament"] > 0,
+              f"{path}: the fused tail never launched")
+        if "serve_requests" in path:
+            check(c["paged_attention"] > 0,
+                  f"{path}: paged_attention never launched")
+    return by_path, results
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = [
@@ -2931,6 +3367,7 @@ def main() -> int:
                                             target)
     del target
     torch.cuda.empty_cache()
+    fam_counts, fam_results = timed("8 families", phase_families)
     tiny_margin_rows = timed("4 tiny generate", phase_tiny)
     tiny_serve_margin_rows = timed("4b tiny serve_requests",
                                    phase_tiny_serve)
@@ -2942,7 +3379,7 @@ def main() -> int:
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
              **stream_counts,
-             **rec_counts, **measure_counts,
+             **rec_counts, **measure_counts, **fam_counts,
              "ssd scalar-kernel shapes (phase 2c)": scalar_counts,
              **train_counts}
     kernels = []
@@ -2964,6 +3401,7 @@ def main() -> int:
     print(json.dumps({"slice": slice_results, "serve": serve_results,
                       "recurrent": rec_results,
                       "measures": measure_results,
+                      "families": fam_results,
                       "launches": paths,
                       "tiny_margin_rows": tiny_margin_rows,
                       "tiny_serve_margin_rows": tiny_serve_margin_rows,

@@ -374,7 +374,7 @@ def main() -> int:
         rc = pa.paged_attention_launch(
             ops._ptr(q), ops._ptr(k), ops._ptr(v), ops._ptr(table),
             ops._ptr(pos), ops._ptr(got), B, Sq, H, Hkv, hd, ps,
-            table.shape[1], 1, 1.0 / hd ** 0.5, ops._stream(q))
+            table.shape[1], 0, 1, 1.0 / hd ** 0.5, ops._stream(q))
         torch.cuda.synchronize()
         if rc or not torch.equal(got, want):
             raise SystemExit(f"kernel_trace: traced paged {name} differs")

@@ -7,7 +7,15 @@ and names.  Dense (``repro/models/transformer.py`` and ``layers.py``):
 ``embed`` (V, d), ``head`` (d, V), ``ln_out`` (d,), and layer-stacked
 ``blocks`` with ``ln_attn``/``ln_ffn`` (L, d), ``attn.{wq,wk,wv}`` (L, d,
 H, hd), ``attn.wo`` (L, H, hd, d) and ``ffn.{w_in,w_gate}`` (L, d, ff),
-``ffn.w_out`` (L, ff, d).  Recurrent (``repro/models/ssm.py``): the same
+``ffn.w_out`` (L, ff, d).  MoE blocks hold ``moe.{router, w_in, w_gate,
+w_out, shared_in, shared_gate, shared_out}`` in place of ``ffn``; audio
+decoder blocks add ``ln_cross`` and ``cross.{wq,wk,wv,wo}``, beside
+``enc_blocks`` and ``audio_proj``; a VLM has ``blocks`` of (n_groups, g,
+...), ``cross_blocks`` (n_groups, ...) and ``img_proj``.  In the port a
+group's ``attn`` and ``ffn`` leaves sit flat (``blocks.wq``), every other
+sub-group keeps its name (``blocks.moe.w_in``, ``cross_blocks.cross.wq``),
+and a VLM's self blocks are flat over n_groups · g.  Recurrent
+(``repro/models/ssm.py``): the same
 ``embed``/``head``/``ln_out``, flat layer-stacked ``blocks.*`` (RWKV6 or
 Mamba2 leaves) and, for the hybrid, ``shared`` with ``ln_attn`` (n_sites,
 d), ``ln_ffn``, ``attn.*`` and the gelu ``ffn.{w_in, w_out}``.
@@ -28,11 +36,14 @@ from repro_torch.models.model import Model, init_params
 
 
 def _flat(group: Mapping[str, Any]):
-    """{ln_*, attn: {...}, ffn: {...}} -> {leaf name: array}."""
+    """{ln_*, attn: {...}, ffn: {...}, moe: {...}, ...} -> {parameter
+    name within the group: array}: the ``attn`` / ``ffn`` leaves flat,
+    any other sub-group's as "sub.leaf"."""
     out = {}
     for name, leaf in group.items():
         if isinstance(leaf, Mapping):
-            out.update(leaf)
+            out.update({(k if name in ("attn", "ffn") else f"{name}.{k}"): v
+                        for k, v in leaf.items()})
         else:
             out[name] = leaf
     return out
@@ -45,9 +56,14 @@ FFN_LEAVES = ("w_in", "w_gate", "w_out")
 
 
 def _nest(group: Mapping[str, Any]):
-    """{leaf name: array} -> {ln_*, attn: {...}, ffn: {...}, ...}."""
+    """The inverse of ``_flat``: {parameter name: array} -> {ln_*, attn:
+    {...}, ffn: {...}, sub: {...}, ...}."""
     out = {}
     for name, leaf in group.items():
+        sub, _, rest = name.partition(".")
+        if rest:
+            out.setdefault(sub, {})[rest] = leaf
+            continue
         sub = ("attn" if name in ATTN_LEAVES else
                "ffn" if name in FFN_LEAVES else None)
         if sub is None:
@@ -55,6 +71,22 @@ def _nest(group: Mapping[str, Any]):
         else:
             out.setdefault(sub, {})[name] = leaf
     return out
+
+
+def _vlm_groups(tree: dict, cfg: ModelConfig, to_ref: bool) -> dict:
+    """A VLM's ``blocks`` between the reference's (n_groups, g, ...) and
+    the port's flat (n_groups · g, ...) leaves."""
+    if cfg.arch_type != "vlm":
+        return tree
+    g = cfg.cross_attn_every
+
+    def walk(x):
+        if isinstance(x, Mapping):
+            return {k: walk(v) for k, v in x.items()}
+        x = np.asarray(x)
+        return (x.reshape((x.shape[0] // g, g) + x.shape[1:]) if to_ref
+                else x.reshape((-1,) + x.shape[2:]))
+    return dict(tree, blocks=walk(tree["blocks"]))
 
 
 def as_tree(named: Mapping[str, torch.Tensor]) -> dict:
@@ -76,7 +108,8 @@ def as_tree(named: Mapping[str, torch.Tensor]) -> dict:
 def to_jax_tree(model: Model) -> dict:
     """The model's weights as the reference's params tree of float32
     numpy arrays: the inverse of ``from_jax_tree``."""
-    return as_tree(dict(model.named_parameters()))
+    return _vlm_groups(as_tree(dict(model.named_parameters())), model.cfg,
+                       to_ref=True)
 
 
 def from_jax_tree(tree: Mapping[str, Any], cfg: ModelConfig, *,
@@ -94,13 +127,13 @@ def assign(model: Model, tree: Mapping[str, Any]) -> Model:
     cfg = model.cfg
     if cfg.tie_embeddings or "head" not in tree:
         raise NotImplementedError("tied embeddings are not ported")
-    leaves = {"embed": tree["embed"], "head": tree["head"],
-              "ln_out": tree["ln_out"]}
-    leaves.update({f"blocks.{k}": v
-                   for k, v in _flat(tree["blocks"]).items()})
-    if "shared" in tree:
-        leaves.update({f"shared.{k}": v
-                       for k, v in _flat(tree["shared"]).items()})
+    tree = _vlm_groups(tree, cfg, to_ref=False)
+    leaves = {}
+    for top, sub in tree.items():
+        if isinstance(sub, Mapping):
+            leaves.update({f"{top}.{k}": v for k, v in _flat(sub).items()})
+        else:
+            leaves[top] = sub
     params = dict(model.named_parameters())
     if set(leaves) != set(params):
         raise ValueError(f"tree leaves {sorted(leaves)} do not match the "

@@ -32,7 +32,7 @@ SIGNATURES = {
     "tournament_keyed_launch": [_P, _P, _P, _I, _I, _I, _U, _P, _P, _P],
     "spec_verify_launch": [_P] * 5 + [_I] * 4 + [_P] * 5,
     "spec_verify_wm_launch": [_P] * 13 + [_I] * 7 + [_U] * 4 + [_P],
-    "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "paged_attention_launch": [_P] * 6 + [_I] * 9 + [_F, _P],
     "wkv_step_launch": [_P] * 8 + [_I] * 4 + [_P],
     "wkv_launch": [_P] * 8 + [_I] * 5 + [_P],
     "ssd_step_launch": [_P] * 7 + [_I] * 6 + [_P],

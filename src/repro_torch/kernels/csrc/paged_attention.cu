@@ -6,6 +6,15 @@
 // add exact zeros and a row never depends on pages past its limit.  The
 // output is in the pool's type (float32 or bfloat16).
 //
+// Sliding window (window > 0, passed only below the extent max_pages ·
+// page_size): as layers.decode_attention, every query of slot b reads one
+// slice of `window` positions from lo_b = clamp(pos[b] + Sq − 1 − window,
+// 0, extent − window), and query i attends the positions of it in
+// [max(lo_b, pos[b] + i − window), pos[b] + i).  A tile reads only the
+// slice's positions (chunks below lo_b are never visited), and a row with
+// no valid position averages v over the slice, as the plain version's
+// uniform masked softmax does.
+//
 // Replaces: src/repro/kernels/paged_attention.py::paged_attention_kernel
 // (body _paged_attn_body).  The TPU kernel walks all max_pages pages of
 // the table in grid order, stashes every score and v page in VMEM and
@@ -31,8 +40,9 @@
 // positions; chunk j belongs to member j mod PA_CLUSTER, and position p is
 // read from row p % page_size of page table[b, p / page_size], so any page
 // size works and nothing is instantiated per page size.  A tile visits
-// positions below the largest limit of its rows (the whole extent if a row
-// has no valid position, as the plain version averages v over it there).
+// positions below the largest limit of its rows (the whole extent, or the
+// window's slice, if a row has no valid position, as the plain version
+// averages v over it there).
 // Each member streams its chunks' k (pass one) and v (pass two) tiles
 // through a ring of pa_stages() shared-memory stages (4 up to hd 128, 3
 // past it) filled with 16-byte cp.async copies, all but one stage in
@@ -70,12 +80,12 @@
 // type; p·v summed in float32; the output in the pool's type.  (The sum l
 // is formed online, as the first port's was.)
 //
-// Determinism: every sum's order is fixed by the row's positions and the
-// compile-time constants (chunk, member, lane, position group); positions
-// past a row's limit add exact zeros, and a member with none of the row's
-// valid positions adds l_c·exp(finfo.min − M) = 0.  A row's output
-// therefore does not depend on B, the other rows of its tile, the SM
-// count or the schedule.
+// Determinism: every sum's order is fixed by the row's positions, its
+// slot's window base and the compile-time constants (chunk, member, lane,
+// position group); positions outside a row's keys add exact zeros, and a
+// member with none of the row's valid positions adds l_c·exp(finfo.min −
+// M) = 0.  A row's output therefore does not depend on B, the other rows
+// of its tile, the SM count or the schedule.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,6 +187,7 @@ struct PagedArgs {
   const long long *table, *pos;
   void *out;
   int Sq, H, Hkv, hd, ps, max_pages;
+  int window;  // > 0: the sliding window (below the extent)
   float scale;
 };
 
@@ -303,9 +314,30 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
 
   const long long p_b = a.pos[b];
   const long long extent = (long long)a.max_pages * ps;
-  const long long lim_lo = p_b + r0 / n_rep;
-  const long long lim_hi = p_b + (r0 + rows - 1) / n_rep;
-  const int n_pos = (int)(lim_lo <= 0 ? extent : min(extent, lim_hi));
+  // the positions a tile may read, [base, base + span): the window's
+  // slice, else the whole extent; a row of limit lim attends [lower(lim),
+  // upper(lim)) of them (layers.window_valid's rule; lim − window passes
+  // base only where the slice is clamped at the extent's end)
+  const bool win = a.window > 0;
+  const long long base =
+      win ? min(max(p_b + a.Sq - 1 - a.window, 0LL), extent - a.window) : 0;
+  const long long span = win ? (long long)a.window : extent;
+  auto lower = [&](long long lim) {
+    return win ? max(base, lim - a.window) : 0LL;
+  };
+  auto upper = [&](long long lim) {
+    return win ? min(base + a.window, lim) : lim;
+  };
+  // n_pos positions from base: to the tile's largest upper bound, or the
+  // whole span when one of its rows has no valid position
+  bool any_empty = false;
+  long long hi = base;
+  for (int rr = 0; rr < rows; ++rr) {
+    const long long l = p_b + (r0 + rr) / n_rep;
+    if (upper(l) <= lower(l)) any_empty = true;
+    else hi = max(hi, upper(l));
+  }
+  const int n_pos = (int)(any_empty ? span : min(span, hi - base));
   const int n_chunks = (n_pos + PA_CHUNK - 1) / PA_CHUNK;
   const int n_c =
       rank < n_chunks ? (n_chunks - 1 - rank) / PA_CLUSTER + 1 : 0;
@@ -313,6 +345,7 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
   const int n_items = 2 * n_c + (n_c - n_st);
   const bool has_row = warp < rows;
   const long long lim = p_b + (r0 + warp) / n_rep;
+  const long long lo_w = lower(lim), up_w = upper(lim);
   const long long *trow = a.table + (size_t)b * a.max_pages;
   const float scale = a.scale;
 
@@ -335,8 +368,9 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
         const int p = p0 + j;
         unsigned char *d = dst + j * stride + 16 * vi;
         if (p < n_pos) {
-          const long long page = page_of(u, k, j, p);
-          cp_async16(d, pool + (((size_t)page * ps + p % ps) * Hkv + kvh) *
+          const long long ap = base + p;        // the logical position
+          const long long page = page_of(u, k, j, ap);
+          cp_async16(d, pool + (((size_t)page * ps + ap % ps) * Hkv + kvh) *
                                    hd + PER * vi);
         } else {
           *reinterpret_cast<uint4 *>(d) = make_uint4(0u, 0u, 0u, 0u);
@@ -362,7 +396,7 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
         const int e = tid + u * PA_THREADS;
         const int p = p0 + e / vpr;
         pre[i][u] = i < n_items && e < PA_CHUNK * vpr && p < n_pos
-                        ? trow[p / ps] : 0;
+                        ? trow[(base + p) / ps] : 0;
       }
     }
 #pragma unroll
@@ -370,16 +404,16 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
       issue_with(i, [&](int u, int, int, int) { return pre[i][u]; });
   }
   auto issue = [&](int i) {
-    issue_with(i, [&](int, int k, int j, int p) {
+    issue_with(i, [&](int, int k, int j, long long ap) {
       return k < PA_PAGE_CHUNKS ? (long long)s_page[k * PA_CHUNK + j]
-                                : trow[p / ps];
+                                : trow[ap / ps];
     });
   };
   for (int e = tid; e < min(n_c, PA_PAGE_CHUNKS) * PA_CHUNK;
        e += PA_THREADS) {
     const int p = (rank + PA_CLUSTER * (e / PA_CHUNK)) * PA_CHUNK +
                   e % PA_CHUNK;
-    s_page[e] = p < n_pos ? (int)trow[p / ps] : 0;
+    s_page[e] = p < n_pos ? (int)trow[(base + p) / ps] : 0;
   }
   const T *q = static_cast<const T *>(a.q);
   for (int e = tid; e < PA_ROWS * hd; e += PA_THREADS) {
@@ -392,11 +426,13 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1)
     s_q[e] = x;
   }
 
-  // the masked, scaled score of position p0 + lane for this warp's row
+  // the masked, scaled score of position base + p0 + lane for this
+  // warp's row
   auto score = [&](const unsigned char *kt, int p0) {
     const int p = p0 + lane;
     if (p >= n_pos) return -INFINITY;          // absent: adds nothing
-    if ((long long)p >= lim) return -FLT_MAX;  // masked: finfo.min
+    const long long ap = base + p;
+    if (ap >= up_w || ap < lo_w) return -FLT_MAX;  // masked: finfo.min
     return round_to<T>(dot_row<T>(s_q + warp * hd, kt + lane * stride, vpr)) *
            scale;
   };
@@ -561,15 +597,16 @@ static int launch_hd(const PagedArgs &a, int B, cudaStream_t stream) {
 }
 
 // bf16 != 0: q, pools and out are bfloat16, else float32.  table (B,
-// max_pages) and pos (B,) are int64.  The wrapper checks that H % Hkv == 0,
+// max_pages) and pos (B,) are int64; window 0 (full causal) or in (0,
+// max_pages · ps).  The wrapper checks that H % Hkv == 0,
 // hd is a multiple of 8 up to 256 and the pools are 16-byte aligned; any
 // page size >= 1.
 extern "C" int paged_attention_launch(const void *q, const void *kp,
                                       const void *vp, const void *table,
                                       const void *pos, void *out, int B,
                                       int Sq, int H, int Hkv, int hd, int ps,
-                                      int max_pages, int bf16, float scale,
-                                      void *stream) {
+                                      int max_pages, int window, int bf16,
+                                      float scale, void *stream) {
   PagedArgs a;
   a.q = q;
   a.kp = kp;
@@ -583,6 +620,7 @@ extern "C" int paged_attention_launch(const void *q, const void *kp,
   a.hd = hd;
   a.ps = ps;
   a.max_pages = max_pages;
+  a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_hd<__nv_bfloat16>(a, B, s);

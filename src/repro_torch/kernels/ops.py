@@ -324,21 +324,27 @@ def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
     return n_acc, prefix, etok, (estat if tournament else estat[:, 0])
 
 
-def paged_attention(q, k_pool, v_pool, page_table, pos):
+def paged_attention(q, k_pool, v_pool, page_table, pos, *, window=0):
     """Attention of q (B, Sq, H, hd) over a paged KV pool: pools (P,
     page_size, Hkv, hd), page_table (B, max_pages) int64 physical page ids
     (0 = null), pos () or (B,) int64; query i attends logical kv positions
-    < pos + i, GQA head h reads kv head h // (H / Hkv).  Returns (B, Sq, H,
-    hd) in the pool's type.  The kernel takes float32 or bfloat16 pools
-    (q of the same type), int64 tables and positions (no conversion),
-    16-byte aligned pools (it reads them in 16-byte vectors), hd a
-    multiple of 8 up to PAGED_MAX_HD, and any page size."""
+    < pos + i, GQA head h reads kv head h // (H / Hkv).  A ``window``
+    below the extent max_pages · page_size reads one slice of that many
+    positions a row (``layers.decode_attention``'s rule: from
+    ``layers.window_start``, keys within ``window`` of the query).
+    Returns (B, Sq, H, hd) in the
+    pool's type.  The kernel takes float32 or bfloat16 pools (q of the
+    same type), int64 tables and positions (no conversion), 16-byte
+    aligned pools (it reads them in 16-byte vectors), hd a multiple of 8
+    up to PAGED_MAX_HD, and any page size."""
     B, Sq, H, hd = q.shape
     pos = torch.as_tensor(pos, device=q.device).expand(B)
     if not _on_cuda(q, k_pool, v_pool, page_table, pos):
-        return ref.paged_attention_ref(q, k_pool, v_pool, page_table, pos)
+        return ref.paged_attention_ref(q, k_pool, v_pool, page_table, pos,
+                                       window=window)
     P, ps, Hkv, _ = k_pool.shape
     max_pages = page_table.shape[1]
+    window = int(window) if 0 < window < max_pages * ps else 0
     dtype = k_pool.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged_attention: pool dtype {dtype}, the kernel "
@@ -358,7 +364,7 @@ def paged_attention(q, k_pool, v_pool, page_table, pos):
     out = torch.empty((B, Sq, H, hd), dtype=dtype, device=q.device)
     rc = build.load().paged_attention_launch(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(pos),
-        _ptr(out), B, Sq, H, Hkv, hd, ps, max_pages,
+        _ptr(out), B, Sq, H, Hkv, hd, ps, max_pages, window,
         int(dtype == torch.bfloat16), 1.0 / math.sqrt(hd), _stream(q))
     _launched("paged_attention", rc)
     return out

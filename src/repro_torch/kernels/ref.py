@@ -155,17 +155,20 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor):
                                     + tuple(pool.shape[2:]))
 
 
-def paged_attention_ref(q, k_pool, v_pool, page_table, pos):
+def paged_attention_ref(q, k_pool, v_pool, page_table, pos, *, window=0):
     """The plain version of ``csrc/paged_attention.cu``: the page-table
     gather, then ``layers.decode_attention``'s masked-softmax math over the
-    whole gathered extent.  q (B, Sq, H, hd); pools (P, page_size, Hkv,
-    hd); page_table (B, max_pages); pos () or (B,): query i attends logical
-    kv positions < pos + i.  Returns (B, Sq, H, hd) in the pool's type."""
+    gathered extent (max_pages · page_size), with its ``window``.  q (B,
+    Sq, H, hd); pools (P, page_size, Hkv, hd); page_table (B, max_pages);
+    pos () or (B,): query i attends logical kv positions < pos + i (and,
+    under a window smaller than the extent, the positions of its window
+    slice).  Returns (B, Sq, H, hd) in the pool's type."""
     from repro_torch.models import layers as L
     B = q.shape[0]
     pos = torch.as_tensor(pos, device=q.device).expand(B)
     return L.decode_attention(q, paged_gather(k_pool, page_table),
-                              paged_gather(v_pool, page_table), pos)
+                              paged_gather(v_pool, page_table), pos,
+                              window=window)
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -177,7 +180,7 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def paged_attention_tol(q, k_pool, v_pool, page_table, pos, want, *,
-                        flips: int = 2):
+                        flips: int = 2, window: int = 0):
     """Per-element bound on |kernel - plain version| for bfloat16
     ``paged_attention`` when both keep the plain version's rounding points
     and differ only in the order of their float32 sums.  Such a difference
@@ -195,17 +198,31 @@ def paged_attention_tol(q, k_pool, v_pool, page_table, pos, want, *,
     scale = hd ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kd).to(q.dtype).float()
     pos = torch.as_tensor(pos, device=q.device).expand(B)
-    lim = pos[:, None] + torch.arange(Sq, device=q.device)[None]
-    valid = (torch.arange(kd.shape[1], device=q.device)[None, None]
-             < lim[:, :, None])[:, None]
-    p = torch.softmax(torch.where(valid, s * scale,
-                                  torch.finfo(torch.float32).min), -1)
+    from repro_torch.models import layers as L
+    valid, present = L.window_mask(pos, Sq, kd.shape[1], window)
+    sc = torch.where(valid[:, None], s * scale,
+                     torch.finfo(torch.float32).min)
+    p = torch.softmax(torch.where(present[:, None], sc, -torch.inf), -1)
     dp = p * (torch.expm1(bf16_ulp(s) * scale) + 2.0 ** -7)
     out = want.float().transpose(1, 2)                       # (B, H, Sq, hd)
     reach = (vd.abs().amax(-1).transpose(1, 2)[:, :, None]   # (B, H, 1, T)
              + out.abs().amax(-1, keepdim=True))
     per_flip = (dp * reach).amax(-1).transpose(1, 2)         # (B, Sq, H)
     return 2 * bf16_ulp(want) + flips * per_flip[..., None]
+
+
+def paged_attention_flips(q, k_pool, v_pool, page_table, pos, out, want, *,
+                          window: int = 0):
+    """(B, Sq, H): the flips each row of ``out`` needs to lie within
+    ``paged_attention_tol`` of ``want`` — the largest over the row's
+    elements of (|out - want| - two bf16 ulps) over the row's largest
+    flip, 0 where the ulps cover it."""
+    args = (q, k_pool, v_pool, page_table, pos, want)
+    t0 = paged_attention_tol(*args, flips=0, window=window)
+    per_flip = (paged_attention_tol(*args, flips=1, window=window)
+                - t0)[..., 0]
+    excess = ((out.float() - want.float()).abs() - t0).clamp_min(0).amax(-1)
+    return torch.where(excess > 0, excess / per_flip.clamp_min(1e-30), 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,10 @@ decode chunk (same served bits; paged pools need the doubled page-growth
 horizon).
 
 Not ported: ``--dry-run``, ``--mesh``, ``--devices`` and ``--multi-pod``
-(ROADMAP's "Multi-device and TPU tooling" item); an ``--arch`` outside
-``configs.REGISTRY`` (its "Other families" item).
+(ROADMAP's "Multi-device and TPU tooling" item).  An audio or VLM
+target (``--arch whisper-tiny`` / ``llama-3.2-vision-11b``) takes random
+frame embeddings (``models.model.example_batch``) as its generate
+extras; continuous batching refuses it (no per-request extras).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import numpy as np
 
 from repro_torch.configs import REGISTRY, get_smoke_config
 from repro_torch.data import synthetic
-from repro_torch.models.model import init_params
+from repro_torch.models.model import example_batch, extras_of, init_params
 from repro_torch.serve import engine as E
 from repro_torch.serve import keys as KZ
 from repro_torch.serve.config import ServeConfig
@@ -134,8 +136,9 @@ def models(arch: str, draft_arch: str = "", device="cuda"):
     if draft_arch:
         dcfg = get_smoke_config(draft_arch, vocab=V, n_layers=1,
                                 d_model=64)
-    elif tcfg.arch_type in ("ssm", "hybrid"):
-        # the draft stays a small dense transformer, as in deployment
+    elif tcfg.arch_type in ("ssm", "hybrid", "audio", "vlm"):
+        # the draft stays a small dense transformer, as in deployment (a
+        # text-only draft: an audio / VLM draft would need frame inputs)
         dcfg = get_smoke_config("yi-6b", **small)
     else:
         dcfg = get_smoke_config(arch, **small)
@@ -259,16 +262,18 @@ def main(argv=None):
     for flag, arch in (("--arch", args.arch),
                        ("--draft-arch", args.draft_arch)):
         if arch and arch not in REGISTRY:
-            ap.error(f"{flag} {arch!r} is not in the port's registry "
-                     f"({sorted(REGISTRY)}); the other families arrive "
-                     "with ROADMAP's \"Other families\" item")
+            ap.error(f"{flag} {arch!r} is not in the registry "
+                     f"({sorted(REGISTRY)})")
     target, draft = models(args.arch, args.draft_arch, args.device)
     scfg = E.SpecConfig(K=args.k, watermark=args.watermark,
                         accept=args.accept, temperature=args.temperature)
     if args.requests:
         return serve_replay(ap, args, target, draft, scfg)
+    # the stub frontends' frame embeddings of an audio / VLM target
+    extras = extras_of(example_batch(target.cfg, args.batch, 4,
+                                     device=args.device))
     res = E.generate(target, draft, scfg, prompt_batch(args.batch),
-                     n_tokens=args.tokens, key=KEY)
+                     n_tokens=args.tokens, key=KEY, extras=extras)
     print(f"arch={args.arch} watermark={args.watermark} "
           f"accept={args.accept} K={args.k}")
     print(f"AATPS={res.aatps:.3f} tokens/step={res.tokens_per_step:.3f} "

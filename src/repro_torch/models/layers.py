@@ -27,6 +27,8 @@ def activation(name: str):
         return F.silu
     if name == "gelu":           # jax.nn.gelu is the tanh approximation
         return lambda x: F.gelu(x, approximate="tanh")
+    if name == "sqrelu":         # nemotron's squared ReLU
+        return lambda x: torch.square(F.relu(x))
     raise ValueError(f"unknown activation {name}")
 
 
@@ -42,11 +44,15 @@ def apply_rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def qkv_proj(wq, wk, wv, x, positions, theta):
+def qkv_proj(wq, wk, wv, x, positions, theta, rope: bool = True):
+    """q, k, v of x; RoPE on q and k unless ``rope`` is False (whisper's
+    non-causal encoder)."""
     q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dhk->bshk", x, wk)
     v = torch.einsum("bsd,dhk->bshk", x, wv)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    if rope:
+        q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    return q, k, v
 
 
 def out_proj(wo, attn_out):
@@ -159,17 +165,69 @@ def attention(q, k, v, *, causal=True, window=0, blockwise_threshold=2048,
                                skip_masked_blocks=skip_masked_blocks)
 
 
+def window_start(pos, Sq: int, S: int, window: int):
+    """The first logical position of each row's window slice in a cache
+    of extent S: ``pos + Sq - 1 - window`` (pos (B,) the limit of query
+    0), clamped to [0, S - window] as the reference's dynamic slice is.
+    -> (B,) int64."""
+    return torch.clamp(pos + Sq - 1 - window, min=0, max=S - window)
+
+
+def window_valid(pos, start, Sq: int, window: int):
+    """(B, Sq, window) bool: slice position j (logical ``start + j``) is a
+    key of query i when ``start + j < pos + i`` and ``pos + i - (start +
+    j) <= window``."""
+    kv = start[:, None] + torch.arange(window, device=pos.device)[None]
+    lim = pos[:, None] + torch.arange(Sq, device=pos.device)[None]
+    return ((kv[:, None, :] < lim[:, :, None])
+            & (lim[:, :, None] - kv[:, None, :] <= window))
+
+
+def window_mask(pos, Sq: int, S: int, window: int = 0):
+    """``decode_attention``'s masks over a whole cache of extent S: (valid
+    (B, Sq, S), the keys of each query; present (B, 1, S), the positions
+    its softmax runs over: the window's slice under ``0 < window < S``,
+    else the extent), placed from ``window_start`` / ``window_valid``."""
+    B = pos.shape[0]
+    kv = torch.arange(S, device=pos.device)
+    lim = pos[:, None] + torch.arange(Sq, device=pos.device)[None]
+    if not (window and window < S):
+        return (kv[None, None] < lim[:, :, None],
+                torch.ones((B, 1, S), dtype=torch.bool, device=pos.device))
+    start = window_start(pos, Sq, S, window)
+    idx = start[:, None] + torch.arange(window, device=pos.device)[None]
+    present = torch.zeros((B, S), dtype=torch.bool, device=pos.device)
+    present.scatter_(1, idx, True)
+    valid = torch.zeros((B, Sq, S), dtype=torch.bool, device=pos.device)
+    valid.scatter_(2, idx[:, None].expand(B, Sq, window),
+                   window_valid(pos, start, Sq, window))
+    return valid, present[:, None]
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, grouped=False):
-    """Query i of row b attends to cache positions [0, pos[b] + i)."""
-    if window or grouped:
-        raise NotImplementedError(
-            "decode_attention: only the non-grouped path with window=0 is "
-            "ported")
-    S, Sq = k_cache.shape[1], q.shape[1]
-    kv_pos = torch.arange(S, device=q.device)
-    lim = pos[:, None] + torch.arange(Sq, device=q.device)[None]
+    """The reference's ``decode_attention``: q (B, Sq, H, hd), caches (B,
+    S, Hkv, hd), pos (B,) the limit of query 0 (the cache position + 1).
+    Query i of row b attends cache positions [0, pos[b] + i).
+
+    With ``0 < window < S`` every query of a row reads one slice of
+    ``window`` positions from ``window_start`` and attends the positions
+    of it below its limit and within ``window`` of it, so query 0 of an
+    extend sees ``window - Sq + 1`` keys, and a query with none averages v
+    over the slice (the masked softmax is uniform).  ``grouped`` (the
+    config's ``opt_decode``) is accepted for the reference's signature:
+    its fold of the GQA queries is the same function summed in another
+    order, so one masked path computes both."""
+    B, S = k_cache.shape[:2]
+    Sq = q.shape[1]
+    pos = torch.as_tensor(pos, device=q.device).expand(B)
+    if window and window < S:
+        start = window_start(pos, Sq, S, window)
+        idx = start[:, None] + torch.arange(window, device=q.device)[None]
+        rows = torch.arange(B, device=q.device)[:, None]
+        return _masked_attention(q, k_cache[rows, idx], v_cache[rows, idx],
+                                 window_valid(pos, start, Sq, window))
     return _masked_attention(q, k_cache, v_cache,
-                             kv_pos[None, None, :] < lim[:, :, None])
+                             window_mask(pos, Sq, S)[0])
 
 
 def cache_write(cache, kv, pos):
@@ -189,12 +247,11 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos, *, window=0,
     Hkv, hd) and per-slot page tables (B, max_pages) of physical page ids
     (0 = the null page) replace the dense (B, S, Hkv, hd) cache.  A CPU
     tensor takes the plain gather + masked softmax, a CUDA tensor the
-    paged-attention kernel (``kernels.ops.paged_attention``)."""
-    if window or grouped:
-        raise NotImplementedError(
-            "paged_decode_attention: only the non-grouped path with "
-            "window=0 is ported")
-    return ops.paged_attention(q, k_pool, v_pool, page_table, pos)
+    paged-attention kernel (``kernels.ops.paged_attention``), which takes
+    the window too.  ``grouped`` is accepted as ``decode_attention``
+    accepts it."""
+    return ops.paged_attention(q, k_pool, v_pool, page_table, pos,
+                               window=window)
 
 
 def paged_cache_write(pool, page_table, kv, pos):

@@ -55,10 +55,12 @@ def _sampler_scores(dec, probs, key, ctx, seen: bool, wm_stream: int,
 
 @torch.no_grad()
 def decision_margin(t_model, d_model, scfg: SpecConfig, prompt, res,
-                    row: int, j: int) -> float:
+                    row: int, j: int, extras=None) -> float:
     """Smallest relative margin among the decisions that produce token j
     of ``row`` in result ``res`` (pseudorandom acceptance), recomputed on
-    the models' device from the common prefix prompt + tokens[:j]."""
+    the models' device from the common prefix prompt + tokens[:j]
+    (``extras``: the row's modality inputs, batch 1, for a VLM or audio
+    target)."""
     dec = make_decoder(scfg)
     dev = t_model.embed.device
     prefix = torch.as_tensor(
@@ -69,11 +71,12 @@ def decision_margin(t_model, d_model, scfg: SpecConfig, prompt, res,
     seen = bool(res.masked[row, j])
     temp = scfg.temperature
 
-    def dist(model):
-        logits, _ = model.prefill(prefix, prefix.shape[1])
+    def dist(model, ex=None):
+        logits, _ = (model.prefill(prefix, prefix.shape[1], extras=ex) if ex
+                     else model.prefill(prefix, prefix.shape[1]))
         return torch.softmax(logits[0, -1].float() / temp, -1)
 
-    p = dist(t_model)
+    p = dist(t_model, extras)
     if j == 0:
         return float(ref.margin(_sampler_scores(
             dec, p, key, ctx, seen, dec.target_stream,

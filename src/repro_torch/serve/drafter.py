@@ -168,8 +168,9 @@ class HybridDrafter(RecurrentDrafter):
     chunked_extend = False
 
 
-_DRAFTERS = {"dense": TransformerDrafter(), "ssm": RecurrentDrafter(),
-             "hybrid": HybridDrafter()}
+_DRAFTERS = {**{fam: TransformerDrafter()
+                for fam in ("dense", "moe", "vlm", "audio")},
+             "ssm": RecurrentDrafter(), "hybrid": HybridDrafter()}
 
 
 def get_drafter(cfg) -> TransformerDrafter:

@@ -154,16 +154,23 @@ def prompt_window(prompts, c: int):
 
 def init_state(t_model: Model, d_model: Model, scfg: SpecConfig,
                prompts: torch.Tensor, max_seq: int, key,
-               strength=None) -> Dict[str, Any]:
+               strength=None, extras: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
     """Prefill both models on prompts (B, S0) and sample the first token.
     ``key`` is one key word or a (B,) row; ``strength`` None, a scalar or
-    (B,)."""
+    (B,).  ``extras`` carries the stub frontends' modality inputs
+    ("image_emb" / "audio_emb") to the target's prefill only: the draft
+    is a text-only LM."""
     B, S0 = prompts.shape
     dev = prompts.device
     dec = make_decoder(scfg)
     keys = prf.as_key_words(key, B, device=dev)
     sv = _strength_vec(strength, B, dev)
-    t_logits, t_cache = t_model.prefill(prompts, max_seq)
+    t_logits, t_cache = (
+        t_model.prefill(prompts, max_seq, extras={
+            k: torch.as_tensor(v, device=dev)
+            for k, v in extras.items()})
+        if extras else t_model.prefill(prompts, max_seq))
     _, d_cache = get_drafter(d_model.cfg).prefill(d_model, prompts, max_seq)
     meta = first_token_meta(dec, scfg, keys, t_logits[:, -1],
                             prompt_window(prompts, scfg.ctx_window),
@@ -484,10 +491,11 @@ def _n_tokens_vec(n_tokens, B: int) -> np.ndarray:
 
 def _fit_caches(state, need: int):
     """Grow the KV caches of a resumed state to ``need`` positions along
-    their sequence axis 2 (dense (L, B, S, Hkv, hd) and the hybrid's
-    (n_sites, B, S, Hkv, hd) alike), so the continuation's writes stay in
-    bounds (the reference would drop them).  Caches without k/v (recurrent
-    state does not grow) are left as they are."""
+    their sequence axis 2 (dense (L, B, S, Hkv, hd), a VLM's flat self
+    layers and the hybrid's (n_sites, B, S, Hkv, hd) alike), so the
+    continuation's writes stay in bounds (the reference would drop them).
+    Only k/v grow: recurrent state and the fixed-extent cross memories
+    (xk/xv, ck/cv) keep their shapes."""
     for cn in ("t_cache", "d_cache"):
         cache = state[cn]
         if "k" not in cache:
@@ -599,11 +607,14 @@ def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
              prompts, *, n_tokens, key, strength=None,
              sync_every: Optional[int] = None,
              state: Optional[Dict[str, Any]] = None,
-             eos_id: Optional[int] = None) -> GenerationResult:
+             eos_id: Optional[int] = None,
+             extras: Optional[Dict[str, Any]] = None) -> GenerationResult:
     """Run spec steps until every slot reaches its target (scalar or (B,)
     ``n_tokens``) or emits ``eos_id``; finished slots freeze while the
     others continue.  Pass ``state=`` (a previous result's ``.state``) to
     continue where that call stopped.  Runs on the models' device.
+    ``extras`` ("image_emb" / "audio_emb", (B, frames, d)) feed a VLM or
+    audio target's prefill.
 
     ``sync_every`` is accepted for parity with the reference and checked;
     the loop reads the done flags after every step either way."""
@@ -620,7 +631,7 @@ def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
         # worst case: a fast slot commits K+1 tokens on every step
         state = init_state(t_model, d_model, scfg, prompts,
                            S0 + 1 + K1 * max_steps + 2, key,
-                           strength=strength)
+                           strength=strength, extras=extras)
     else:
         state = dict(state)
         _fit_caches(state, int(torch.maximum(

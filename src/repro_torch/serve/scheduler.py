@@ -544,6 +544,13 @@ class Scheduler:
                     strength_controller=strength_controller,
                     overlap=overlap, on_token=on_token,
                     on_result=on_result).validate()
+        if t_model.cfg.arch_type in ("audio", "vlm"):
+            raise ValueError(
+                f"continuous batching does not support arch_type="
+                f"{t_model.cfg.arch_type!r} yet: admission prefills "
+                "text-only prompts and has no per-request modality extras "
+                "(audio_emb/image_emb) — use generate(extras=...) with "
+                "fixed batches")
         if mesh is not None:
             raise NotImplementedError(
                 "Scheduler(mesh=...): the multi-device path is not ported "

@@ -15,7 +15,9 @@ within 1e-5 (another order of float sums); bfloat16 within
 ref.paged_attention_tol, per element: two bf16 ulps of the element plus
 two flips of the row's worst score or probability rounding (another sum
 order may round a score, a probability or the output one ulp the other
-way).  The recurrent kernels (wkv, wkv_step, ssd, ssd_step and its
+way); with a sliding window the bf16 bound is the same, and a row alone
+equals its batch bit for bit.  The recurrent kernels (wkv, wkv_step, ssd,
+ssd_step and its
 per-timestep scan): every output, y and the state, within ref.wkv_tol /
 ref.ssd_tol, chip_smoke.py's bound (twice γ_D times the output's
 envelope, the plain version run on absolute values); the WKV state equal
@@ -28,7 +30,8 @@ steps of a smoke Zamba2 (ssm.chunk 8) on the card against the CPU, each
 loss within rtol 1e-4 (AdamW's g / (|g| + eps) turns the last bits of a
 gradient near 0 into a visible step; the CPU parity test holds the same).
 Serving: overlap on equals overlap off bit for bit, one device_get a
-sync round."""
+sync round; olmoe's smoke pair (MoE target and draft) gives the CPU's
+tokens on the card, through generate and paged serve_requests."""
 import numpy as np
 import pytest
 import torch
@@ -187,6 +190,7 @@ def _paged_inputs(B, Sq, H, Hkv, hd, ps, max_pages, pos, dtype, dev, seed):
     (3, 5, 64, 8, 112, 12, 90, [500, 977, 0]),     # kimi-like GQA, hd 112
     (3, 5, 16, 16, 256, 48, 22, [300, 1000, 0]),   # gemma-like, hd 256
     (2, 5, 8, 8, 192, 64, 16, [900, 0]),           # hd 192, page 64
+    (3, 5, 96, 8, 192, 16, 64, [600, 977, 0]),     # nemotron-like GQA
     (2, 1, 8, 8, 128, 16, 260, [4096, 0]),         # a 4096-position row
     (2, 1, 4, 4, 64, 16, 600, [9000, 0])])         # past 32 staged chunks
 def test_paged_attention_matches_plain_version(cuda, dtype, B, Sq, H, Hkv,
@@ -238,6 +242,79 @@ def test_paged_attention_row_alone_equals_batched(cuda, dtype, Sq, H, Hkv,
         alone = ops.paged_attention(q[b:b + 1], k, v, table[b:b + 1],
                                     pos[b:b + 1])
         assert torch.equal(alone[0], batched[b]), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,H,Hkv,hd,ps,max_pages,pos,window", [
+    (3, 5, 32, 4, 128, 16, 300, [4600, 4100, 0], 4096),   # yi-6b-swa4k verify
+    (2, 32, 8, 4, 64, 16, 80, [900, 0], 8),                # rows with no key
+    (3, 5, 4, 2, 64, 4, 16, [3, 40, 0], 8),               # start clamped at 0
+    (2, 1, 8, 8, 128, 16, 40, [639, 0], 100)])             # decode at the end
+def test_paged_attention_window_matches_plain_version(
+        cuda, dtype, B, Sq, H, Hkv, hd, ps, max_pages, pos, window):
+    """The windowed kernel against the windowed plain version (bf16 within
+    ``paged_attention_tol(window=)``, fp32 within 1e-5), one launch; each
+    row alone equals its batch bit for bit."""
+    args = _paged_inputs(B, Sq, H, Hkv, hd, ps, max_pages, pos, dtype, cuda,
+                         seed=window + Sq)
+    ops.reset_launches()
+    out = ops.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    want = ref.paged_attention_ref(*args, window=window)
+    tol = (1e-5 if dtype == torch.float32
+           else ref.paged_attention_tol(*args, want, window=window))
+    diff = (out.float() - want.float()).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+    q, k, v, table, p = args
+    for b in range(B):
+        alone = ops.paged_attention(q[b:b + 1], k, v, table[b:b + 1],
+                                    p[b:b + 1], window=window)
+        assert torch.equal(alone[0], out[b]), b
+
+
+@pytest.mark.gpu
+def test_olmoe_generate_on_card_matches_cpu(cuda):
+    """olmoe's smoke pair (MoE target and draft) in fp32 through ``generate``
+    and paged ``serve_requests``: the card gives the CPU's tokens (rows
+    parting at a near-tie are explained and counted)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import divergence
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    cfgs = (get_smoke_config("olmoe-1b-7b", vocab=256),
+            get_smoke_config("olmoe-1b-7b", vocab=256, n_layers=1,
+                             d_model=64, d_ff=128, n_heads=2, n_kv_heads=2,
+                             head_dim=32))
+    cpu = [init_params(c, seed=s, device="cpu") for c, s in zip(cfgs, (3, 4))]
+    gpu = [init_params(c, seed=s, device="cpu").to(cuda)
+           for c, s in zip(cfgs, (3, 4))]
+    prompts = np.random.default_rng(0).integers(1, 256, size=(3, 8))
+    scfg = E.SpecConfig(K=3, watermark="gumbel")
+    rc = E.generate(*cpu, scfg, prompts, n_tokens=16, key=5)
+    ops.reset_launches()
+    rg = E.generate(*gpu, scfg, prompts, n_tokens=16, key=5)
+    assert ops.LAUNCHES["spec_verify_wm"] > 0
+    for b in range(3):
+        j = divergence.first_divergence(rc, rg, b)
+        if j is not None:
+            assert divergence.decision_margin(*cpu, scfg, prompts[b], rc, b,
+                                              j) < MARGIN
+    reqs = [(p, 8) for p in prompts]
+    conf = ServeConfig(batch=2, key=5, page_size=4, num_pages=40,
+                       prefill_chunk=4, sync_every=2)
+    ops.reset_launches()
+    sg = E.serve_requests(*gpu, scfg, reqs, config=conf)
+    assert ops.LAUNCHES["paged_attention"] > 0
+    sc = E.serve_requests(*cpu, scfg, reqs, config=conf)
+    for a, b2, (p, _) in zip(sc, sg, reqs):
+        ra, rb = a.as_generation_result(), b2.as_generation_result()
+        j = divergence.first_divergence(ra, rb, 0)
+        if j is not None:
+            assert divergence.decision_margin(*cpu, scfg, p, ra, 0,
+                                              j) < MARGIN
 
 
 def _tournament_inputs(B, V, dev, seed):

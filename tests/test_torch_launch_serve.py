@@ -95,10 +95,11 @@ def test_launcher_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit):
         LS.main(CPU + ["--requests", str(bad)])
     assert "unknown request fields ['n_tokenz']" in capsys.readouterr().err
-    for arch in (["--arch", "olmoe-1b-7b"], ["--draft-arch", "nope"]):
-        with pytest.raises(SystemExit):
-            LS.main(CPU + arch)
-        assert "Other families" in capsys.readouterr().err
+    res = LS.main(CPU + ["--arch", "olmoe-1b-7b", "--tokens", "4"])
+    assert res.tokens.shape[0] == 2 and res.lengths.min() >= 4
+    with pytest.raises(SystemExit):
+        LS.main(CPU + ["--draft-arch", "nope"])
+    assert "'nope' is not in the registry" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")

@@ -95,9 +95,13 @@ def test_random_init_and_unported_archs():
     for (n, a), (_, b) in zip(m1.named_parameters(), m2.named_parameters()):
         assert torch.equal(a, b), n
     assert m1.blocks["wq"].shape == (2, 128, 2, 64)
-    with pytest.raises(NotImplementedError):
-        init_params(dataclasses.replace(TP.TINY_DRAFT, arch_type="moe"),
-                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        init_params(dataclasses.replace(TP.TINY_DRAFT, window=8),
+    # the other families build (this slice ported them)
+    from repro_torch.configs import get_smoke_config
+    moe = init_params(get_smoke_config("olmoe-1b-7b", vocab=64), device="cpu")
+    assert moe.blocks["moe"]["w_in"].shape == (2, 4, 256, 256)
+    swa = init_params(dataclasses.replace(TP.TINY_DRAFT, window=8),
+                      device="cpu")
+    assert swa.cfg.window == 8
+    with pytest.raises(ValueError):
+        init_params(dataclasses.replace(TP.TINY_DRAFT, arch_type="nope"),
                     device="cpu")

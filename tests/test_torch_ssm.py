@@ -340,8 +340,14 @@ def test_random_init_follows_the_reference_distribution():
                 and (hyb.blocks["d_skip"] == 1).all())
     assert tuple(hyb.shared["ln_attn"].shape) == (TS.n_sites(hyb.cfg), d)
     assert "w_gate" not in hyb.shared
-    with pytest.raises(NotImplementedError):
-        TM.init_params(dataclasses.replace(cfg, arch_type="moe", ssm=None),
+    # the attention families are ported: an MoE arch builds a Transformer
+    # (here without experts, as the reference's init does when moe is
+    # None); an unknown arch still raises
+    moe = TM.init_params(dataclasses.replace(cfg, arch_type="moe", ssm=None),
+                         device="cpu")
+    assert not isinstance(moe, TS.RecurrentLM)
+    with pytest.raises(ValueError):
+        TM.init_params(dataclasses.replace(cfg, arch_type="nope", ssm=None),
                        device="cpu")
 
 
