@@ -47,12 +47,12 @@ Phases, each fatal on failure, in this order:
      apart;
   3. the dense Algorithm 1 slice at full width: LLAMA_7B target and
      LLAMA_68M draft in bf16 (random weights from a seed), B=4, prompt 16,
-     48 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
+     32 tokens, K=4, temperature 0.7, for gumbel, synthid and synthid-inf;
      the launch counts of that run show it went through the kernels (the
      repeat and fused="off" checks of synthid-inf run INF_CHECK_TOKENS);
   3b. continuous batching at full width: the same pair through
      serve_requests over the paged pool (8 slots, page 16, chunk 32,
-     prefix cache), 24 requests submitted at once, gumbel and synthid;
+     prefix cache), 16 requests submitted at once, gumbel and synthid;
      requests/s, tokens/s, TTFT, gaps, pages, launch counts, a trace;
      then the same requests through a Scheduler that times its parts (a
      separate run: its synchronizes stay out of the timed one);
@@ -99,7 +99,7 @@ Phases, each fatal on failure, in this order:
      TRAIN_LOSS_RTOL; benchmarks/common.py's pair trained 300 steps
      through repro_torch.train.pair into artifacts/ (the loss must fall)
      and its Gumbel K=4 AATPS beside the untrained pair's;
-  7. streaming (run right after 3b, on its models): phase 3b's 24
+  7. streaming (run right after 3b, on its models): phase 3b's 16
      requests through engine.serve_stream with overlap on, gumbel and
      synthid, the pool sized for the doubled page-growth horizon:
      streamed tokens equal the drained results, which equal phase 3b's
@@ -112,7 +112,20 @@ Phases, each fatal on failure, in this order:
      (stream, overlap, paged, prefix cache, key pool, a tier line) and
      without --requests, and python -m repro_torch.examples.tradeoff_curves
      and .quickstart (phase 6's pair from its cache), four processes at
-     once: each exits 0 and prints its report lines.
+     once: each exits 0 and prints its report lines;
+  9. multi-device serving (after 8, once its models are freed): (a) one
+     NCCL rank in this process, LLAMA_7B + LLAMA_68M in bf16 through
+     generate(mesh=1x1, shard_params=True), bit for bit equal to the same
+     run without a mesh; (b) two spawned ranks sharing the card over gloo,
+     the TINY pair in fp32 on meshes 2x1 and 1x2 (generate gumbel and
+     synthid, serve_requests dense and paged) against the unsharded runs
+     on the card, outside counted margin rows, every kernel of each path
+     launched on each rank; (c) the same ranks, LLAMA_7B + LLAMA_68M in
+     bf16 tensor-parallel over 1x2 (generate, B=4, prompt 16, 16 tokens,
+     gumbel and synthid): every row reaches its length, the first
+     verify's logits within MESH_LOGIT_RTOL of the unsharded run's; rows
+     equal to the end, ms per step, collectives and MB per step and peak
+     memory per rank printed.
 It prints a `kernels` JSON line, the card's line, and last a JSON line
 {"ok": true, "device": {...}}.  It imports neither JAX nor the JAX
 package, and exits non-zero without a result where there is no CUDA card
@@ -661,7 +674,8 @@ def phase_kernels():
 # Phase 3: the slice at full width
 # ---------------------------------------------------------------------------
 
-SLICE = dict(B=4, prompt=16, n_tokens=48, K=4, temperature=0.7)
+# 32 tokens, 16 requests in 3b: the script's time limit holds phase 9 too
+SLICE = dict(B=4, prompt=16, n_tokens=32, K=4, temperature=0.7)
 # synthid-inf's repeat and fused="off" runs are cut to this many tokens
 # (held against the first run's prefix: slots are isolated, so a shorter
 # run's tokens are the longer run's first ones) to keep the script inside
@@ -1394,7 +1408,7 @@ def phase_recurrent_kernels():
 # ---------------------------------------------------------------------------
 
 SERVE = dict(batch=8, page_size=PAGE_SIZE, prefill_chunk=32, sync_every=4,
-             n_requests=24, prompt=(16, 256), system=64, n_tokens=(16, 64),
+             n_requests=16, prompt=(16, 256), system=64, n_tokens=(16, 64),
              K=4, temperature=0.7)
 SERVE_SCHEMES = ("gumbel", "synthid")
 
@@ -1481,7 +1495,7 @@ def serve_config(reqs, overlap=False, **over):
 
 
 def phase_serve(target, draft):
-    """24 requests through serve_requests (paged, prefix cache) for gumbel
+    """16 requests through serve_requests (paged, prefix cache) for gumbel
     and synthid at full width; returns the launch counts, the numbers and
     the RequestResults of each scheme's timed run (phase 7 holds its
     overlapped runs to them).
@@ -1628,7 +1642,7 @@ def stream_serve(target, draft, scfg, reqs, cfg):
 
 
 def phase_stream(target, draft, serve_results, served):
-    """Phase 3b's 24 requests through engine.serve_stream with overlap on
+    """Phase 3b's 16 requests through engine.serve_stream with overlap on
     (paged, prefix cache, the pool sized for the doubled horizon), gumbel
     and synthid.  Each run must stream exactly its drained results, equal
     phase 3b's overlap=False results bit for bit (tokens, src, u, context
@@ -3268,6 +3282,344 @@ def phase_families():
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: multi-device serving (sharding.spmd over torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH = dict(B=4, prompt=16, n_tokens=16, K=4, temperature=0.7)
+MESH_KEYS = [0x1234, 0xDEADBEEF, 7, 2**31 + 5]
+MESH_SCHEMES = ("gumbel", "synthid")
+# the ranks' TINY cells are most of phase 9's time (gloo stages every
+# collective through the host): 5 requests keep one queued past the 4 slots
+MESH_TINY = dict(B=4, prompt=12, n_tokens=12, meshes=((2, 1), (1, 2)),
+                 n_requests=5, serve_prompt=(4, 24), serve_tokens=(6, 14))
+MESH_TINY_SERVE = {"dense": dict(),
+                   "paged": dict(page_size=4, num_pages=120, prefill_chunk=8,
+                                 prefix_cache=True)}
+# the tensor-parallel bf16 logits against the unsharded run's: each of the
+# 2 x 32 row-parallel sums of a LLAMA_7B forward (attention out, FFN out)
+# rounds to bf16 twice (each rank's partial, then their sum) where the
+# unsharded product rounds once; the bound allows one unit of bf16's
+# 2^-8 a sum, of the row's largest |logit|
+MESH_LOGIT_RTOL = 2 * 32 * 2.0 ** -8
+MESH_FIELDS = ("tokens", "lengths", "from_draft", "u", "ctx_hashes",
+               "masked", "y_draft", "y_target", "keys")
+
+
+def mesh_prompts(B, S, vocab, seed):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(1, vocab, (B, S), generator=g).numpy()
+
+
+def tiny_mesh_pair():
+    """The TINY pair in fp32 from seeds 3 and 4, made on the CPU and moved
+    to the card: the same weights in every process."""
+    from repro_torch.configs import TINY_DRAFT, TINY_TARGET
+    from repro_torch.models.model import init_params
+    return [init_params(c, seed=s, device="cpu").to(DEV)
+            for c, s in ((TINY_TARGET, 3), (TINY_DRAFT, 4))]
+
+
+def tiny_mesh_runs(t, d, mesh=None):
+    """The TINY cells of phase 9 (generate gumbel / synthid, serving dense
+    / paged, gumbel): {cell: result}, with each cell's launch counts."""
+    from repro_torch.configs import TINY_TARGET
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.config import ServeConfig
+    c = MESH_TINY
+    prompts = mesh_prompts(c["B"], c["prompt"], TINY_TARGET.vocab, 11)
+    reqs = serve_workload(9, c["n_requests"], c["serve_prompt"],
+                          c["serve_tokens"], TINY_TARGET.vocab, 12)
+    out, counts, secs = {}, {}, {}
+    for wm in MESH_SCHEMES:
+        scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out[wm] = E.generate(t, d, scfg, prompts, n_tokens=c["n_tokens"],
+                             key=99, mesh=mesh)
+        secs[wm] = time.perf_counter() - t0
+        counts[wm] = dict(ops.LAUNCHES)
+    scfg = E.SpecConfig(K=4, watermark="gumbel", m=30, temperature=0.7)
+    for mode, kw in MESH_TINY_SERVE.items():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out[mode] = E.serve_requests(t, d, scfg, reqs, config=ServeConfig(
+            batch=4, key=99, sync_every=3, mesh=mesh, **kw))
+        secs[mode] = time.perf_counter() - t0
+        counts[mode] = dict(ops.LAUNCHES)
+    return out, counts, prompts, reqs, secs
+
+
+def count_collectives():
+    """Wrap torch.distributed's all_reduce and all_gather (the layout's
+    collectives, the loop's done test among them) to count the calls and
+    the bytes this rank sends: -> the counter dict."""
+    import torch.distributed as dist
+    n = {"calls": 0, "bytes": 0}
+
+    def counted(fn, arg):
+        def run(*a, **kw):
+            t = a[arg]
+            n["calls"] += 1
+            n["bytes"] += t.numel() * t.element_size()
+            return fn(*a, **kw)
+        return run
+    dist.all_reduce = counted(dist.all_reduce, 0)
+    dist.all_gather = counted(dist.all_gather, 1)
+    return n
+
+
+def mesh_rank(rank, data, model):
+    """One of phase 9's two ranks sharing the card over gloo: the TINY
+    cells on meshes 2x1 and 1x2, then LLAMA_7B + LLAMA_68M in bf16
+    tensor-parallel over 1x2.  Returns numpy results, launch counts,
+    first-verify logits, timings, collectives and peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import LLAMA_7B, LLAMA_68M
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import engine as E
+    out = {"tiny": {}, "seconds": {}}
+    lap = [time.perf_counter()]
+
+    def timed_part(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - lap[0]
+        lap[0] = now
+    build.load()
+    timed_part("library loaded")
+    for dm in MESH_TINY["meshes"]:
+        mesh = make_host_mesh(data=dm[0], model=dm[1])
+        res, counts, _, _, secs = tiny_mesh_runs(*tiny_mesh_pair(), mesh)
+        out["seconds"].update({f"tiny {dm[0]}x{dm[1]} {k}": v
+                               for k, v in secs.items()})
+        out["tiny"][dm] = (
+            {k: (dataclasses.replace(v, state=None) if k in MESH_SCHEMES
+                 else [dataclasses.replace(r, arrivals_s=None, ttft_s=None)
+                       for r in v]) for k, v in res.items()}, counts)
+        timed_part(f"tiny {dm[0]}x{dm[1]}")
+    mesh = make_host_mesh(data=data, model=model)
+    torch.cuda.reset_peak_memory_stats()
+    target = init_params(LLAMA_7B, seed=0, dtype=torch.bfloat16, device=DEV)
+    draft = init_params(LLAMA_68M, seed=1, dtype=torch.bfloat16, device=DEV)
+    E.shard(target, draft, mesh, MESH["B"])
+    torch.cuda.empty_cache()
+    timed_part("7B made and sharded")
+    coll = count_collectives()
+    prompts = mesh_prompts(MESH["B"], MESH["prompt"], LLAMA_7B.vocab, 7)
+    out["full"] = {}
+    for wm in MESH_SCHEMES:
+        scfg = E.SpecConfig(K=MESH["K"], watermark=wm,
+                            temperature=MESH["temperature"])
+        got, run = {}, E._run_target
+
+        def first(t_model, fed, t_cache):
+            res = run(t_model, fed, t_cache)
+            if "fed" not in got:
+                got.update(fed=fed.cpu().numpy(),
+                           logits=res[0].float().cpu().numpy())
+            return res
+        E._run_target = first
+        ops.reset_launches()
+        coll.update(calls=0, bytes=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = E.generate(target, draft, scfg, prompts,
+                             n_tokens=MESH["n_tokens"], key=MESH_KEYS,
+                             mesh=mesh)
+        finally:
+            E._run_target = run
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["full"][wm] = dict(
+            result=dataclasses.replace(res, state=None), first=got,
+            seconds=secs, ms_per_step=secs / res.n_steps * 1e3,
+            collectives_per_step=coll["calls"] / res.n_steps,
+            mb_per_step=coll["bytes"] / res.n_steps / 2**20,
+            launches=dict(ops.LAUNCHES))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def mesh_parity(name, want, got, models, scfg, prompts):
+    """Rows of ``got`` equal to ``want``'s, or parting at a counted margin
+    row; -> the margin rows."""
+    from repro_torch.serve import divergence
+    parted = 0
+    for b in range(prompts.shape[0]):
+        j = divergence.first_divergence(want, got, b)
+        n = int(want.lengths[b]) if j is None else j
+        if j is not None:
+            marg = divergence.decision_margin(*models, scfg, prompts[b], got,
+                                              b, j)
+            check(marg < MARGIN_TOL, f"{name}: row {b} parts at {j} with "
+                  f"margin {marg}")
+            parted += 1
+        for f in ("tokens", "from_draft", "ctx_hashes", "masked"):
+            check(bool((getattr(want, f)[b, :n] == getattr(got, f)[b, :n])
+                       .all()), f"{name}: row {b} {f} differs")
+    return parted
+
+
+def phase_mesh():
+    """Phase 9: (a) one rank over NCCL in this process, a 1x1 mesh with
+    shard_params at full width, bit for bit against no mesh; (b) two ranks
+    sharing the card over gloo, the TINY pair in fp32 on meshes 2x1 and
+    1x2 against the unsharded runs on the card; (c) the same two ranks,
+    LLAMA_7B + LLAMA_68M in bf16 tensor-parallel over 1x2, against the
+    unsharded first verify's logits.  Returns the launch counts by path
+    (per rank) and the numbers."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import LLAMA_7B
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, spawn
+    from repro_torch.serve import engine as E
+    from concurrent.futures import ThreadPoolExecutor
+    by_path, results = {}, {}
+    # the ranks make a full LLAMA_7B each on the same card: hand back what
+    # the earlier phases left in this process's allocator cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+          "here before the ranks start")
+    here = {}        # seconds of this process's parts
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        # (b) and (c) run on two spawned ranks while (a) runs here
+        job = pool.submit(spawn, mesh_rank, 2, backend="gloo",
+                          args=(1, 2), timeout_s=600)
+        target, draft = make_pair()
+        prompts = mesh_prompts(MESH["B"], MESH["prompt"], LLAMA_7B.vocab, 7)
+        want = {}
+        for wm in MESH_SCHEMES:
+            scfg = E.SpecConfig(K=MESH["K"], watermark=wm,
+                                temperature=MESH["temperature"])
+            want[wm] = E.generate(target, draft, scfg, prompts,
+                                  n_tokens=MESH["n_tokens"], key=MESH_KEYS)
+        # (a) a 1x1 mesh over one NCCL rank in this process
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                world_size=1)
+            try:
+                mesh = make_host_mesh()
+                scfg = E.SpecConfig(K=MESH["K"], watermark="gumbel",
+                                    temperature=MESH["temperature"])
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                one = E.generate(target, draft, scfg, prompts,
+                                 n_tokens=MESH["n_tokens"], key=MESH_KEYS,
+                                 mesh=mesh, shard_params=True)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                by_path["mesh 1x1 nccl generate"] = dict(ops.LAUNCHES)
+            finally:
+                dist.destroy_process_group()
+        for f in MESH_FIELDS:
+            check(bool(np.array_equal(getattr(one, f),
+                                      getattr(want["gumbel"], f))),
+                  f"mesh 1x1: {f} differs from no mesh")
+        check((one.n_steps, one.aatps) == (want["gumbel"].n_steps,
+                                            want["gumbel"].aatps),
+              "mesh 1x1: steps or AATPS differ from no mesh")
+        results["1x1 nccl"] = dict(ms_per_step=secs / one.n_steps * 1e3,
+                                   n_steps=one.n_steps, bitwise=True)
+        print("mesh 1x1 nccl: " + json.dumps(results["1x1 nccl"]))
+        # (b)'s unsharded side, on the card
+        tiny = tiny_mesh_pair()
+        tiny_want, _, tiny_prompts, reqs, _ = tiny_mesh_runs(*tiny)
+        here["unsharded, 1x1 and TINY here"] = time.perf_counter() - t_phase
+        ranks = job.result()
+        here["ranks done"] = time.perf_counter() - t_phase
+    results["seconds"] = dict(here=here, rank0=ranks[0]["seconds"])
+    print("mesh seconds: " + json.dumps(results["seconds"]))
+    # (b) the TINY cells on two gloo ranks
+    margin_rows = n_rows = 0
+    for dm in MESH_TINY["meshes"]:
+        tag = f"mesh {dm[0]}x{dm[1]} gloo"
+        for rank, r in enumerate(ranks):
+            got, counts = r["tiny"][dm]
+            for wm in MESH_SCHEMES:
+                scfg = E.SpecConfig(K=4, watermark=wm, m=30, temperature=0.7)
+                margin_rows += mesh_parity(f"{tag} {wm}", tiny_want[wm],
+                                           got[wm], tiny, scfg,
+                                           tiny_prompts)
+                n_rows += MESH_TINY["B"]
+                tail = ("spec_verify_wm" if wm == "gumbel"
+                        else "spec_verify_wm_tournament")
+                draft_k = ("gumbel_argmax" if wm == "gumbel"
+                           else "tournament_keyed")
+                check(counts[wm][tail] > 0 and counts[wm][draft_k] > 0,
+                      f"{tag} {wm} rank {rank}: launches {counts[wm]}")
+            scfg = E.SpecConfig(K=4, watermark="gumbel", m=30,
+                                temperature=0.7)
+            for mode in MESH_TINY_SERVE:
+                for a, b, (p, _) in zip(tiny_want[mode], got[mode], reqs):
+                    margin_rows += compare_requests(
+                        a.as_generation_result(), b.as_generation_result(),
+                        tiny, scfg, p, f"{tag} {mode} uid {a.uid}")
+                    n_rows += 1
+                check(counts[mode]["spec_verify_wm"] > 0,
+                      f"{tag} {mode} rank {rank}: launches {counts[mode]}")
+                if mode == "paged":
+                    check(counts[mode]["paged_attention"] > 0,
+                          f"{tag} paged rank {rank}: paged_attention never "
+                          "launched")
+            if rank == 0:
+                for cell, c in counts.items():
+                    by_path[f"{tag} {cell} (rank 0)"] = c
+    results["tiny gloo"] = dict(margin_rows=margin_rows, rows=n_rows)
+    print(f"mesh tiny gloo: margin rows {margin_rows} of {n_rows}")
+    # (c) LLAMA_7B tensor-parallel over 1x2, against the unsharded verify
+    # over the same fed tokens (generate's cache extent)
+    max_seq = MESH["prompt"] + 1 + (MESH["K"] + 1) * MESH["n_tokens"] + 2
+    for wm in MESH_SCHEMES:
+        full = [r["full"][wm] for r in ranks]
+        res = full[0]["result"]
+        check(bool((res.lengths >= MESH["n_tokens"]).all()),
+              f"mesh 1x2 {wm}: lengths {res.lengths}")
+        check(all(bool(np.array_equal(f["result"].tokens, res.tokens))
+                  for f in full), f"mesh 1x2 {wm}: ranks differ")
+        fed = torch.as_tensor(full[0]["first"]["fed"], device=DEV)
+        with torch.no_grad():
+            _, cache = target.prefill(torch.as_tensor(prompts, device=DEV),
+                                      max_seq)
+            logits, _ = target.extend_step(fed, cache)
+        ref = logits.float().cpu().numpy()
+        err = np.abs(full[0]["first"]["logits"] - ref).max(-1)
+        scale = np.abs(ref).max(-1)
+        ratio = float((err / scale).max())
+        check(ratio <= MESH_LOGIT_RTOL,
+              f"mesh 1x2 {wm}: first-verify logits {ratio:.4g} of the row's "
+              f"largest |logit| apart (bound {MESH_LOGIT_RTOL:.4g})")
+        same = [int(np.array_equal(res.tokens[b, :n],
+                                   want[wm].tokens[b, :n]))
+                for b, n in enumerate(np.minimum(res.lengths,
+                                                 want[wm].lengths))]
+        results[f"1x2 gloo {wm}"] = dict(
+            logit_err_over_max=ratio, logit_max_abs_err=float(err.max()),
+            rows_equal_to_end=sum(same), rows=len(same),
+            ms_per_step=full[0]["ms_per_step"], n_steps=res.n_steps,
+            collectives_per_step=full[0]["collectives_per_step"],
+            mb_per_step=full[0]["mb_per_step"],
+            peak_gib_per_rank=[r["peak_gib"] for r in ranks])
+        by_path[f"mesh 1x2 gloo generate {wm} (rank 0)"] = \
+            full[0]["launches"]
+        print(f"mesh 1x2 gloo {wm}: " + json.dumps(results[f"1x2 gloo {wm}"]))
+    del target, draft
+    torch.cuda.empty_cache()
+    return by_path, results
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = [
@@ -3368,6 +3720,7 @@ def main() -> int:
     del target
     torch.cuda.empty_cache()
     fam_counts, fam_results = timed("8 families", phase_families)
+    mesh_counts, mesh_results = timed("9 multi-device", phase_mesh)
     tiny_margin_rows = timed("4 tiny generate", phase_tiny)
     tiny_serve_margin_rows = timed("4b tiny serve_requests",
                                    phase_tiny_serve)
@@ -3379,7 +3732,7 @@ def main() -> int:
     by_case = {r["case"]: r for r in record}
     paths = {"generate": counts, "serve_requests": serve_counts,
              **stream_counts,
-             **rec_counts, **measure_counts, **fam_counts,
+             **rec_counts, **measure_counts, **fam_counts, **mesh_counts,
              "ssd scalar-kernel shapes (phase 2c)": scalar_counts,
              **train_counts}
     kernels = []
@@ -3402,6 +3755,7 @@ def main() -> int:
                       "recurrent": rec_results,
                       "measures": measure_results,
                       "families": fam_results,
+                      "mesh": mesh_results,
                       "launches": paths,
                       "tiny_margin_rows": tiny_margin_rows,
                       "tiny_serve_margin_rows": tiny_serve_margin_rows,

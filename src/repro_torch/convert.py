@@ -73,6 +73,19 @@ def _nest(group: Mapping[str, Any]):
     return out
 
 
+def ref_path(name: str) -> str:
+    """The reference's tree path of a port parameter, as ``as_tree``
+    nests it: "blocks.wq" -> "blocks/attn/wq", "blocks.moe.w_in" ->
+    "blocks/moe/w_in", "embed" -> "embed"."""
+    top, _, leaf = name.partition(".")
+    path, node = [top], _nest({leaf: None}) if leaf else None
+    while isinstance(node, dict):
+        key = next(iter(node))
+        path.append(key)
+        node = node[key]
+    return "/".join(path)
+
+
 def _vlm_groups(tree: dict, cfg: ModelConfig, to_ref: bool) -> dict:
     """A VLM's ``blocks`` between the reference's (n_groups, g, ...) and
     the port's flat (n_groups · g, ...) leaves."""

@@ -6,16 +6,23 @@ plain C interface, and ``ctypes`` loads it.  Nothing here runs at import:
 the first kernel launch calls :func:`load`.  The library lands in
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of the sources, so an edited source is never served a stale binary.
+One build runs at a time: a build holds an exclusive ``flock`` on
+``BUILD_DIR/lock`` and compiles into an object directory of its own, and
+a process that waited on the lock finds the library built (several ranks
+that start at once on a fresh tree build it once).  The lock is the
+kernel's: it goes with the process that held it.
 No ``--use_fast_math``: the kernels' float results must follow IEEE rules
 to agree with their plain versions.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -78,16 +85,30 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile (if needed) and return the path of the shared library."""
-    cus, _ = _sources()
     lib = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():          # else another process built it
+            objs = Path(tempfile.mkdtemp(prefix="objs.", dir=BUILD_DIR))
+            try:
+                _compile(nvcc, lib, objs)
+            finally:
+                shutil.rmtree(objs, ignore_errors=True)
+    return lib
+
+
+def _compile(nvcc: str, lib: Path, objs: Path) -> None:
+    """Compile every source into ``objs`` (one nvcc each, all at once) and
+    link them into ``lib``, atomically."""
+    cus, _ = _sources()
     t0 = time.perf_counter()
     procs = []
     for cu in cus:
-        obj = BUILD_DIR / f"{cu.stem}.o"
+        obj = objs / f"{cu.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o", str(obj)]
         procs.append((cu, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -109,7 +130,6 @@ def build() -> Path:
     _Lib.seconds = time.perf_counter() - t0
     _Lib.log = "\n".join(logs)
     (BUILD_DIR / "build.log").write_text(_Lib.log)
-    return lib
 
 
 def load() -> ctypes.CDLL:

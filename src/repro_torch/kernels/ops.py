@@ -324,6 +324,15 @@ def spec_verify_wm(p, q, tokens, u, keys, ctx_hashes, seen, live=None, *,
     return n_acc, prefix, etok, (estat if tournament else estat[:, 0])
 
 
+def paged_heads_error(H: int, Hkv: int, hd: int) -> str:
+    """Why the paged kernel refuses H query heads over Hkv kv heads of
+    size hd ("" where it takes them)."""
+    if H % Hkv or hd % 8 or not 0 < hd <= PAGED_MAX_HD:
+        return (f"H={H}, Hkv={Hkv}, hd={hd}; the kernel needs H % Hkv == 0 "
+                f"and hd a multiple of 8 up to {PAGED_MAX_HD}")
+    return ""
+
+
 def paged_attention(q, k_pool, v_pool, page_table, pos, *, window=0):
     """Attention of q (B, Sq, H, hd) over a paged KV pool: pools (P,
     page_size, Hkv, hd), page_table (B, max_pages) int64 physical page ids
@@ -349,10 +358,9 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, *, window=0):
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged_attention: pool dtype {dtype}, the kernel "
                         "takes float32 or bfloat16")
-    if H % Hkv or hd % 8 or not 0 < hd <= PAGED_MAX_HD:
-        raise ValueError(f"paged_attention: H={H}, Hkv={Hkv}, hd={hd}; the "
-                         "kernel needs H % Hkv == 0 and hd a multiple of 8 "
-                         f"up to {PAGED_MAX_HD}")
+    error = paged_heads_error(H, Hkv, hd)
+    if error:
+        raise ValueError(f"paged_attention: {error}")
     q = _arg(q, dtype, (B, Sq, H, hd), "q")
     k_pool = _arg(k_pool, dtype, (P, ps, Hkv, hd), "k_pool")
     v_pool = _arg(v_pool, dtype, (P, ps, Hkv, hd), "v_pool")
@@ -362,6 +370,8 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, *, window=0):
         raise ValueError("paged_attention: the kernel reads the pools in "
                          "16-byte vectors; they must be 16-byte aligned")
     out = torch.empty((B, Sq, H, hd), dtype=dtype, device=q.device)
+    if B == 0:           # a zero-row call (a sharded peer's) launches nothing
+        return out
     rc = build.load().paged_attention_launch(
         _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(pos),
         _ptr(out), B, Sq, H, Hkv, hd, ps, max_pages, window,
@@ -467,6 +477,8 @@ def _wkv(r, k, v, w, u, s0):
     B, S, H, hd = r.shape
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     s1 = torch.empty_like(s0)
+    if B == 0:           # a zero-row call (a sharded peer's) launches nothing
+        return y, s1
     rc = build.load().wkv_launch(
         _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(s0), _ptr(y),
         _ptr(s1), B, S, H, hd, int(dtype == torch.bfloat16), _stream(r))
@@ -498,6 +510,8 @@ def _ssd_step_launch(name, la, dtx, Bf, Cf, h0):
                          f"to {SSD_MAX_N}")
     y = torch.empty(dtx.shape, dtype=torch.float32, device=la.device)
     h1 = torch.empty_like(h0)
+    if B == 0:           # a zero-row call (a sharded peer's) launches nothing
+        return y, h1
     rc = build.load().ssd_step_launch(
         _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
         _ptr(h1), B, S, H, hd, N, int(dtype == torch.bfloat16), _stream(la))
@@ -562,6 +576,8 @@ def _ssd(la, dtx, Bf, Cf, h0, *, chunk: int):
     launch = lib.ssd_launch if kernel == "tiled" else lib.ssd_scalar_launch
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=la.device)
     h1 = torch.empty_like(h0)
+    if B == 0:           # a zero-row call (a sharded peer's) launches nothing
+        return y, h1
     rc = launch(
         _ptr(la), _ptr(dtx), _ptr(Bf), _ptr(Cf), _ptr(h0), _ptr(y),
         _ptr(h1), B, S, H, hd, N, Lc, int(dtype == torch.bfloat16),

@@ -30,8 +30,17 @@ counters; ``--overlap`` enqueues each round's host snapshot before its
 decode chunk (same served bits; paged pools need the doubled page-growth
 horizon).
 
-Not ported: ``--dry-run``, ``--mesh``, ``--devices`` and ``--multi-pod``
-(ROADMAP's "Multi-device and TPU tooling" item).  An audio or VLM
+Sharded serving: ``--mesh DATAxMODEL`` starts ``--devices`` local ranks
+(by default DATA·MODEL; ``launch.mesh.spawn``) over gloo on the CPU or on
+one card, over NCCL where each rank has a card of its own, and serves
+the same batch or replay through ``generate(mesh=...)`` or the sharded
+``Scheduler`` on ``make_host_mesh(data=, model=)``; rank 0 prints:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --devices 2 \
+        --mesh 1x2 [--device cpu]
+
+Not ported: ``--dry-run`` and ``--multi-pod`` (they lower on a TPU mesh;
+ROADMAP's "Multi-device and TPU tooling" item).  An audio or VLM
 target (``--arch whisper-tiny`` / ``llama-3.2-vision-11b``) takes random
 frame embeddings (``models.model.example_batch``) as its generate
 extras; continuous batching refuses it (no per-request extras).
@@ -39,22 +48,33 @@ extras; continuous batching refuses it (no per-request extras).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
+import os
+import sys
 
 import numpy as np
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.configs import REGISTRY, get_smoke_config
 from repro_torch.data import synthetic
+from repro_torch.launch.mesh import make_host_mesh, spawn
 from repro_torch.models.model import example_batch, extras_of, init_params
 from repro_torch.serve import engine as E
 from repro_torch.serve import keys as KZ
 from repro_torch.serve.config import ServeConfig
+from repro_torch.sharding.spmd import Layout
 
 KEY = 0          # the reference's launch key, jax.random.key(0), as a word
 PROMPT_LEN = 12
 REQUEST_FIELDS = {"tokens", "text", "n_tokens", "key", "tier", "uid"}
-MULTI_DEVICE = ("the port's multi-device path arrives with ROADMAP's "
-                "\"Multi-device and TPU tooling\" item")
+TPU_ONLY = ("--dry-run / --multi-pod lower the serve step on a TPU mesh; "
+            "ROADMAP's \"Multi-device and TPU tooling\" item ports them "
+            "last (launch/dryrun.py, launch/hlocost.py)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -81,10 +101,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--multi-pod", action="store_true",
                     help="(with --dry-run; not ported)")
     ap.add_argument("--mesh", default="",
-                    help="(sharded serving on a DATAxMODEL mesh; not "
-                         "ported)")
+                    help="serve sharded on a DATAxMODEL mesh of local "
+                         "ranks (e.g. 2x1, 1x2)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="(forced fake devices; not ported)")
+                    help="local ranks to start for --mesh (default "
+                         "DATA*MODEL): gloo on the CPU or on one card, "
+                         "NCCL when each rank has a card")
     ap.add_argument("--requests", default="",
                     help="continuous-batching replay: JSONL file of "
                          '{"tokens": [...], "n_tokens": N} requests '
@@ -183,7 +205,7 @@ def read_requests(ap, path: str, n_tokens: int):
     return reqs
 
 
-def serve_replay(ap, args, target, draft, scfg):
+def serve_replay(ap, args, target, draft, scfg, mesh=None):
     """``--requests``: the log through ``serve_requests``, then the
     report lines."""
     reqs = read_requests(ap, args.requests, args.tokens)
@@ -210,7 +232,8 @@ def serve_replay(ap, args, target, draft, scfg):
     cfg = ServeConfig(
         batch=args.batch, key=KEY,
         eos_id=None if args.eos_id < 0 else args.eos_id,
-        sync_every=args.sync_every, page_size=args.page_size or None,
+        sync_every=args.sync_every, mesh=mesh,
+        page_size=args.page_size or None,
         num_pages=args.num_pages or None,
         prefill_chunk=args.prefill_chunk if args.page_size else None,
         prefix_cache=args.prefix_cache, key_pool=pool,
@@ -253,12 +276,20 @@ def serve_replay(ap, args, target, draft, scfg):
     return results
 
 
-def main(argv=None):
-    ap = parser()
-    args = ap.parse_args(argv)
-    if args.dry_run or args.mesh or args.devices or args.multi_pod:
-        raise NotImplementedError(
-            "--dry-run / --mesh / --devices / --multi-pod: " + MULTI_DEVICE)
+def mesh_shape(ap, spec: str):
+    """``--mesh DATAxMODEL`` -> (data, model)."""
+    try:
+        data, model = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh {spec!r}: expected DATAxMODEL, e.g. 2x1")
+    if data < 1 or model < 1:
+        ap.error(f"--mesh {spec!r}: both sizes must be >= 1")
+    return data, model
+
+
+def serve(ap, args, mesh=None):
+    """Build the pair and serve the batch or the replay (on ``mesh`` when
+    given), printing the report."""
     for flag, arch in (("--arch", args.arch),
                        ("--draft-arch", args.draft_arch)):
         if arch and arch not in REGISTRY:
@@ -267,13 +298,15 @@ def main(argv=None):
     target, draft = models(args.arch, args.draft_arch, args.device)
     scfg = E.SpecConfig(K=args.k, watermark=args.watermark,
                         accept=args.accept, temperature=args.temperature)
+    if mesh is not None:
+        print(f"serving sharded on {Layout(mesh)}")
     if args.requests:
-        return serve_replay(ap, args, target, draft, scfg)
+        return serve_replay(ap, args, target, draft, scfg, mesh)
     # the stub frontends' frame embeddings of an audio / VLM target
     extras = extras_of(example_batch(target.cfg, args.batch, 4,
                                      device=args.device))
     res = E.generate(target, draft, scfg, prompt_batch(args.batch),
-                     n_tokens=args.tokens, key=KEY, extras=extras)
+                     n_tokens=args.tokens, key=KEY, extras=extras, mesh=mesh)
     print(f"arch={args.arch} watermark={args.watermark} "
           f"accept={args.accept} K={args.k}")
     print(f"AATPS={res.aatps:.3f} tokens/step={res.tokens_per_step:.3f} "
@@ -281,6 +314,44 @@ def main(argv=None):
     print("sample bytes:", synthetic.decode_bytes(
         res.tokens[0, :args.tokens])[:60])
     return res
+
+
+def serve_rank(rank: int, argv):
+    """One rank of ``--mesh``: the mesh over the spawned group, then
+    ``serve`` (rank 0 prints).  Returns the result with the rank's engine
+    state dropped (it holds tensors of this process)."""
+    ap = parser()
+    args = ap.parse_args(argv)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // dist.get_world_size()))
+    mesh = make_host_mesh(**dict(zip(("data", "model"),
+                                     mesh_shape(ap, args.mesh))))
+    with (contextlib.redirect_stdout(io.StringIO()) if rank
+          else contextlib.nullcontext()):
+        res = serve(ap, args, mesh)
+    if isinstance(res, E.GenerationResult):
+        res = dataclasses.replace(res, state=None)
+    return res
+
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.dry_run or args.multi_pod:
+        raise NotImplementedError(TPU_ONLY)
+    if args.devices and not args.mesh:
+        ap.error("--devices starts the ranks of a --mesh: give --mesh "
+                 "DATAxMODEL")
+    if not args.mesh:
+        return serve(ap, args)
+    data, model = mesh_shape(ap, args.mesh)
+    n = args.devices or data * model
+    # NCCL gives each rank a card; ranks that share one card, or the CPU,
+    # reduce over gloo
+    backend = ("nccl" if args.device == "cuda"
+               and n <= torch.cuda.device_count() else "gloo")
+    argv = list(argv if argv is not None else sys.argv[1:])
+    return spawn(serve_rank, n, backend=backend, args=(argv,))[0]
 
 
 if __name__ == "__main__":

@@ -154,11 +154,16 @@ class RecurrentLM(nn.Module):
         if cfg.arch_type == "hybrid" and cfg.ssm.kind != "mamba2":
             raise ValueError("the hybrid family is a Mamba2 backbone")
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        self.spmd = None     # this rank's shards (``sharding.spmd``)
+        meta = torch.device(device).type == "meta"
+        gen = None if meta else torch.Generator(device=device).manual_seed(
+            seed)
 
         def param(shape, init):
             kind, value = init
-            if kind == "const":
+            if meta:         # shapes only: ``sharding.param_specs`` at size
+                out = torch.empty(shape, dtype=dtype, device=device)
+            elif kind == "const":
                 out = torch.full(shape, value, dtype=dtype, device=device)
             elif len(shape) <= 2:
                 out = (torch.randn(shape, generator=gen, device=device)
@@ -198,8 +203,24 @@ class RecurrentLM(nn.Module):
         return s.expand * self.cfg.d_model // s.head_dim, s.head_dim, \
             s.d_state
 
+    def _w(self, name: str, t):
+        """t, parameter ``name`` or a slice of it, with its FSDP dims
+        gathered (``sharding.spmd``; a recurrent model shards over no
+        "model" axis)."""
+        return t if self.spmd is None else self.spmd.full(name, t)
+
     def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        return {k: v[i] for k, v in self.blocks.items()}
+        return {k: self._w(f"blocks.{k}", v[i])
+                for k, v in self.blocks.items()}
+
+    def _shared(self) -> Dict[str, torch.Tensor]:
+        """The hybrid's shared block."""
+        return {k: self._w(f"shared.{k}", v) for k, v in self.shared.items()}
+
+    def _embed(self, tokens):
+        table = self._w("embed", self.embed)
+        return table[tokens] if self.spmd is None else \
+            self.spmd.embed(table, tokens)
 
     # -- cache -------------------------------------------------------------
 
@@ -259,7 +280,7 @@ class RecurrentLM(nn.Module):
 
     def _out_mix(self, p, x, y, g):
         """x + w_o · (groupnorm(y) ⊙ g) over the flattened heads."""
-        shp = y.shape[:-2] + (-1,)
+        shp = y.shape[:-2] + (y.shape[-2] * y.shape[-1],)
         y = L.rms_norm(y.reshape(shp).to(x.dtype), p["ln_x"],
                        self.cfg.rms_eps) * g.reshape(shp).to(x.dtype)
         return x + y @ p["w_o"]
@@ -379,37 +400,38 @@ class RecurrentLM(nn.Module):
 
     # -- hybrid shared block -------------------------------------------------
 
-    def _shared_tail(self, x, out):
-        sp, eps = self.shared, self.cfg.rms_eps
+    def _shared_tail(self, sp, x, out):
+        eps = self.cfg.rms_eps
         x = x + L.out_proj(sp["wo"], out)
         h = L.rms_norm(x, sp["ln_ffn"], eps)
         return x + L.apply_ffn(sp["w_in"], None, sp["w_out"], h, "gelu")
 
     def _shared_attn_seq(self, x, site: int, positions):
         """The shared block over x (B, S, d) -> (x, k, v)."""
-        sp = self.shared
+        sp = self._shared()
         h = L.rms_norm(x, sp["ln_attn"][site], self.cfg.rms_eps)
         q, k, v = L.qkv_proj(sp["wq"], sp["wk"], sp["wv"], h, positions,
                              self.cfg.rope_theta)
-        return self._shared_tail(x, L.attention(q, k, v)), k, v
+        return self._shared_tail(sp, x, L.attention(q, k, v)), k, v
 
     def _shared_attn_step(self, x, site: int, k_cache, v_cache, pos):
         """The shared block on one token x (B, d) at per-row positions
         ``pos`` (B,), appending its k/v to the site's cache (in place)."""
-        sp = self.shared
+        sp = self._shared()
         h = L.rms_norm(x, sp["ln_attn"][site], self.cfg.rms_eps)
         q, k, v = L.qkv_proj(sp["wq"], sp["wk"], sp["wv"], h[:, None],
                              pos[:, None], self.cfg.rope_theta)
         L.cache_write(k_cache, k, pos)
         L.cache_write(v_cache, v, pos)
         out = L.decode_attention(q, k_cache, v_cache, pos + 1)
-        return self._shared_tail(x[:, None], out)[:, 0]
+        return self._shared_tail(sp, x[:, None], out)[:, 0]
 
     # -- forward -----------------------------------------------------------
 
     def _logits(self, x):
         x = L.rms_norm(x, self.ln_out, self.cfg.rms_eps)
-        return torch.einsum("...d,dv->...v", x, self.head)
+        y = torch.einsum("...d,dv->...v", x, self._w("head", self.head))
+        return y if self.spmd is None else self.spmd.logits(y)
 
     def _fresh_block(self, i: int, x):
         """Layer i over a fresh sequence x (B, S, d) (zero states) -> x."""
@@ -433,7 +455,7 @@ class RecurrentLM(nn.Module):
         the backward (``torch.utils.checkpoint``, for ``jax.checkpoint``)."""
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for i in range(self.cfg.n_layers):
             if remat:
                 x = checkpoint(self._fresh_block, i, x, use_reentrant=False)
@@ -452,7 +474,7 @@ class RecurrentLM(nn.Module):
         cache = self.init_cache(B, max_seq)
         H, hd, N = self._dims()
         dev = tokens.device
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         if self._rwkv:
             outs = []
             for i in range(self.cfg.n_layers):
@@ -504,7 +526,7 @@ class RecurrentLM(nn.Module):
               .expand(B))
         valid = torch.arange(S, device=dev)[None] < nv[:, None]
         last = torch.clamp_min(nv - 1, 0)
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         outs = []
         if self._rwkv:
             keep = (nv > 0)[:, None]       # rows with no valid tokens
@@ -534,7 +556,7 @@ class RecurrentLM(nn.Module):
     def decode_step(self, token: torch.Tensor, cache: Cache
                     ) -> Tuple[torch.Tensor, Cache]:
         """token (B,) -> (logits (B, V), cache with pos + 1)."""
-        x = self.embed[token]
+        x = self._embed(token)
         pos = cache["pos"]
         outs = []
         if self._rwkv:

@@ -97,9 +97,10 @@ class Transformer(nn.Module):
                              f"attention family ({ATTN_ARCHS})")
         if cfg.moe_shard_constraints:
             raise NotImplementedError(
-                "moe_shard_constraints pins the MoE buffers to a mesh; the "
-                "multi-device path is not ported (ROADMAP's \"Multi-device "
-                "and TPU tooling\" item)")
+                "moe_shard_constraints pins the MoE dispatch buffers' experts "
+                "to \"model\" for the partitioner; ROADMAP §1, \"Multi-"
+                "device and TPU tooling\": \"model\" > 1 for MoE (expert-"
+                "parallel) is not ported")
         if cfg.moe is not None and cfg.moe_every != 1:
             raise ValueError(
                 f"moe_every={cfg.moe_every}: every layer holds the MoE FFN "
@@ -107,10 +108,15 @@ class Transformer(nn.Module):
                 "moe_every either)")
         self.cfg = cfg
         self.last_aux: Dict[str, torch.Tensor] = {}
-        gen = torch.Generator(device=device).manual_seed(seed)
+        self.spmd = None     # this rank's shards (``sharding.spmd``)
+        meta = torch.device(device).type == "meta"
+        gen = None if meta else torch.Generator(device=device).manual_seed(
+            seed)
 
         def normal(shape, std, lead=1):
-            if len(shape) <= 2:
+            if meta:         # shapes only: ``sharding.param_specs`` at size
+                out = torch.empty(shape, dtype=dtype, device=device)
+            elif len(shape) <= 2:
                 out = (torch.randn(shape, generator=gen, device=device)
                        * std).to(dtype)
             else:                # a slice of the first `lead` axes at a time
@@ -154,12 +160,19 @@ class Transformer(nn.Module):
 
     # -- cache -------------------------------------------------------------
 
+    def _kv_heads(self) -> int:
+        """The kv heads this rank computes (its block of them when the
+        model's heads are sharded over "model")."""
+        n = self.cfg.n_kv_heads
+        return n if self.spmd is None else self.spmd.local("blocks.wk", -2, n)
+
     def init_cache(self, batch: int, max_seq: int) -> Cache:
         """A zero KV cache in the weights' type (with the zero cross
-        memories of a VLM or audio model, which prefill fills)."""
+        memories of a VLM or audio model, which prefill fills), over this
+        rank's kv heads."""
         cfg = self.cfg
         dev, dtype = self.embed.device, self.embed.dtype
-        hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+        hd, Hkv = cfg.resolved_head_dim, self._kv_heads()
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -192,7 +205,7 @@ class Transformer(nn.Module):
                 "(image/audio frames) are per-request dense blocks, not "
                 "token pages")
         dev, dtype = self.embed.device, self.embed.dtype
-        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+        shape = (cfg.n_layers, num_pages, page_size, self._kv_heads(),
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -200,46 +213,77 @@ class Transformer(nn.Module):
                                           dtype=torch.int64, device=dev),
                 "pos": torch.zeros(batch, dtype=torch.int64, device=dev)}
 
+    # -- weights -----------------------------------------------------------
+
+    def _w(self, name: str, t):
+        """t, parameter ``name`` or a slice of it, whole but for the dims
+        it is sharded over "model" (``sharding.spmd``: the FSDP dims are
+        gathered here, just before use)."""
+        return t if self.spmd is None else self.spmd.full(name, t)
+
+    def _layer(self, prefix: str, i: int) -> Dict[str, Any]:
+        """Layer i of the group ``prefix`` ("blocks", "enc_blocks",
+        "cross_blocks"): {leaf: weight}, the ``moe`` / ``cross`` leaves in
+        sub-dicts."""
+        def take(path, grp):
+            return {k: (take(f"{path}.{k}", v)
+                        if isinstance(v, nn.ParameterDict)
+                        else self._w(f"{path}.{k}", v[i]))
+                    for k, v in grp.items()}
+        return take(prefix, getattr(self, prefix))
+
+    def _reduce(self, name: str, dim: int, y):
+        """The sum over "model" of a row-parallel product's partial y."""
+        return y if self.spmd is None else self.spmd.reduce(name, dim, y)
+
+    def _embed(self, tokens):
+        table = self._w("embed", self.embed)
+        return table[tokens] if self.spmd is None else \
+            self.spmd.embed(table, tokens)
+
     # -- blocks ------------------------------------------------------------
 
-    def _ffn(self, grp, i: int, x, dropless: bool):
-        """The FFN half of block i of ``grp`` -> (x, MoE aux or None)."""
+    def _ffn(self, prefix: str, w, x, dropless: bool):
+        """The FFN half of a block of ``prefix`` with weights ``w`` -> (x,
+        MoE aux or None)."""
         cfg = self.cfg
-        h = L.rms_norm(x, grp["ln_ffn"][i], cfg.rms_eps)
-        if "moe" in grp:
-            y, aux = apply_moe({k: w[i] for k, w in grp["moe"].items()},
-                               cfg.moe, h, cfg.act, dropless=dropless)
+        h = L.rms_norm(x, w["ln_ffn"], cfg.rms_eps)
+        if "moe" in w:
+            y, aux = apply_moe(w["moe"], cfg.moe, h, cfg.act,
+                               dropless=dropless)
             return x + y, aux
-        w_gate = grp["w_gate"][i] if "w_gate" in grp else None
-        return x + L.apply_ffn(grp["w_in"][i], w_gate, grp["w_out"][i], h,
-                               cfg.act), None
+        y = L.apply_ffn(w["w_in"], w.get("w_gate"), w["w_out"], h, cfg.act)
+        return x + self._reduce(f"{prefix}.w_out", -2, y), None
 
-    def _cross(self, grp, i: int, x, mk, mv):
-        """Cross-attention of x to the memory k/v of site i (no mask)."""
-        c = grp["cross"]
-        h = L.rms_norm(x, grp["ln_cross"][i], self.cfg.rms_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, c["wq"][i])
+    def _cross(self, w, x, mk, mv):
+        """Cross-attention of x to the memory k/v of a site (no mask)."""
+        c = w["cross"]
+        h = L.rms_norm(x, w["ln_cross"], self.cfg.rms_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, c["wq"])
         out = L.attention_full(q, mk, mv, causal=False)
-        return x + torch.einsum("bshk,hkd->bsd", out, c["wo"][i])
+        return x + torch.einsum("bshk,hkd->bsd", out, c["wo"])
 
-    def _block(self, grp, i: int, x, positions, attend, cross_kv,
+    def _block(self, prefix: str, i: int, x, positions, attend, cross_kv,
                dropless: bool, rope: bool = True):
-        """Block i of ``grp``: self-attention (``attend(i, q, k, v)``),
-        then cross-attention to ``cross_kv(i)`` where given, then the FFN
-        -> (x, MoE aux or None)."""
+        """Block i of ``prefix``: self-attention (``attend(i, q, k, v)``,
+        over this rank's heads), then cross-attention to ``cross_kv(i)``
+        where given, then the FFN -> (x, MoE aux or None)."""
         cfg = self.cfg
-        h = L.rms_norm(x, grp["ln_attn"][i], cfg.rms_eps)
-        q, k, v = L.qkv_proj(grp["wq"][i], grp["wk"][i], grp["wv"][i], h,
-                             positions, cfg.rope_theta, rope=rope)
-        x = x + L.out_proj(grp["wo"][i], attend(i, q, k, v))
+        w = self._layer(prefix, i)
+        h = L.rms_norm(x, w["ln_attn"], cfg.rms_eps)
+        q, k, v = L.qkv_proj(w["wq"], w["wk"], w["wv"], h, positions,
+                             cfg.rope_theta, rope=rope)
+        x = x + self._reduce(f"{prefix}.wo", -3,
+                             L.out_proj(w["wo"], attend(i, q, k, v)))
         if cross_kv is not None:
-            x = self._cross(grp, i, x, *cross_kv(i))
-        return self._ffn(grp, i, x, dropless)
+            x = self._cross(w, x, *cross_kv(i))
+        return self._ffn(prefix, w, x, dropless)
 
     def _cross_block(self, gi: int, x, cross_kv, dropless: bool):
         """A VLM's cross block gi: cross-attention, then its FFN."""
-        x = self._cross(self.cross_blocks, gi, x, *cross_kv(gi))
-        return self._ffn(self.cross_blocks, gi, x, dropless)
+        w = self._layer("cross_blocks", gi)
+        x = self._cross(w, x, *cross_kv(gi))
+        return self._ffn("cross_blocks", w, x, dropless)
 
     def _decoder(self, x, positions, attend, cross_kv, *, dropless: bool,
                  remat: bool = False):
@@ -262,12 +306,12 @@ class Transformer(nn.Module):
             g = cfg.cross_attn_every
             for gi in range(n_cross_groups(cfg)):
                 for j in range(gi * g, (gi + 1) * g):
-                    x = run(self._block, self.blocks, j, x, positions,
+                    x = run(self._block, "blocks", j, x, positions,
                             attend, None, dropless)
                 x = run(self._cross_block, gi, x, cross_kv, dropless)
         else:
             for i in range(cfg.n_layers):
-                x = run(self._block, self.blocks, i, x, positions, attend,
+                x = run(self._block, "blocks", i, x, positions, attend,
                         cross_kv if cfg.arch_type == "audio" else None,
                         dropless)
         lb = torch.zeros((), device=x.device)
@@ -289,10 +333,10 @@ class Transformer(nn.Module):
         extras = extras or {}
         dtype = self.embed.dtype
         if cfg.arch_type == "vlm":
-            return torch.einsum("bsd,de->bse",
-                                extras["image_emb"].to(dtype), self.img_proj)
+            return torch.einsum("bsd,de->bse", extras["image_emb"].to(dtype),
+                                self._w("img_proj", self.img_proj))
         x = torch.einsum("bsd,de->bse", extras["audio_emb"].to(dtype),
-                         self.audio_proj)
+                         self._w("audio_proj", self.audio_proj))
         pos = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[0], -1)
 
@@ -300,7 +344,7 @@ class Transformer(nn.Module):
             return L.attention(q, k, v, causal=False, window=cfg.window)
 
         for i in range(cfg.n_encoder_layers):
-            x, _ = self._block(self.enc_blocks, i, x, pos, attend, None,
+            x, _ = self._block("enc_blocks", i, x, pos, attend, None,
                                dropless=False, rope=False)
         return x
 
@@ -310,11 +354,14 @@ class Transformer(nn.Module):
         if mem is None:
             return None
         vlm = self.cfg.arch_type == "vlm"
-        grp = self.cross_blocks if vlm else self.blocks
+        prefix = "cross_blocks" if vlm else "blocks"
+        cross = getattr(self, prefix)["cross"]
 
         def cross_kv(i):
-            mk = torch.einsum("bsd,dhk->bshk", mem, grp["cross"]["wk"][i])
-            mv = torch.einsum("bsd,dhk->bshk", mem, grp["cross"]["wv"][i])
+            mk = torch.einsum("bsd,dhk->bshk", mem,
+                              self._w(f"{prefix}.cross.wk", cross["wk"][i]))
+            mv = torch.einsum("bsd,dhk->bshk", mem,
+                              self._w(f"{prefix}.cross.wv", cross["wv"][i]))
             if store is not None:
                 store["xk" if vlm else "ck"][i] = mk
                 store["xv" if vlm else "cv"][i] = mv
@@ -322,8 +369,11 @@ class Transformer(nn.Module):
         return cross_kv
 
     def _logits(self, x):
+        """Logits over the whole vocabulary (this rank's vocab block
+        gathered over "model" when the head is split)."""
         x = L.rms_norm(x, self.ln_out, self.cfg.rms_eps)
-        return torch.einsum("bsd,dv->bsv", x, self.head)
+        y = torch.einsum("bsd,dv->bsv", x, self._w("head", self.head))
+        return y if self.spmd is None else self.spmd.logits(y)
 
     # -- forward -----------------------------------------------------------
 
@@ -344,7 +394,7 @@ class Transformer(nn.Module):
         def attend(i, q, k, v):
             return L.attention(q, k, v, window=window)
 
-        x, aux = self._decoder(self.embed[tokens], positions, attend,
+        x, aux = self._decoder(self._embed(tokens), positions, attend,
                                self._cross_kv_of(self._memory(extras)),
                                dropless=False, remat=remat)
         return self._logits(x), aux
@@ -365,7 +415,7 @@ class Transformer(nn.Module):
             cache["v"][i, :, :S] = v
             return L.attention(q, k, v, window=window)
 
-        x, _ = self._decoder(self.embed[tokens], positions, attend,
+        x, _ = self._decoder(self._embed(tokens), positions, attend,
                              self._cross_kv_of(self._memory(extras), cache),
                              dropless=False)
         cache["pos"] = torch.full((B,), S, dtype=torch.int64,
@@ -403,7 +453,7 @@ class Transformer(nn.Module):
             def cross_kv(i):
                 return cache[mk][i], cache[mv][i]
 
-        x, _ = self._decoder(self.embed[tokens], positions, attend, cross_kv,
+        x, _ = self._decoder(self._embed(tokens), positions, attend, cross_kv,
                              dropless=True)
         return self._logits(x), dict(cache, pos=pos + Sq)
 

@@ -26,11 +26,9 @@ a ``DeprecationWarning``.
 
 ``overlap=True`` doubles the paged page-growth horizon: size
 ``num_pages`` for two chunks of per-slot advance, or ``_ensure_pages``
-raises mid-flight.  ``mesh`` is a field of the record (the surface is the
-reference's), but the port's ``Scheduler`` raises ``NotImplementedError``
-on it (ROADMAP's "Multi-device and TPU tooling" item); the reference's
-``shard_params`` acts only with a mesh, so it is no field here and the
-shim refuses it the same way.
+raises mid-flight.  ``mesh`` (a ``DeviceMesh``, ``launch.mesh``) serves
+sharded, as ``engine.generate(mesh=...)`` runs; ``shard_params=False``
+keeps the models whole on every rank.
 """
 from __future__ import annotations
 
@@ -45,7 +43,7 @@ LEGACY_KWARGS = ("batch", "key", "max_tokens", "max_prompt_len", "eos_id",
                  "strength_controller", "overlap", "on_token", "on_result")
 
 # the fields Scheduler(...) takes as keyword arguments
-SCHEDULER_FIELDS = tuple(k for k in LEGACY_KWARGS if k != "shard_params")
+SCHEDULER_FIELDS = LEGACY_KWARGS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +60,7 @@ class ServeConfig:
     eos_id: Optional[int] = None
     sync_every: int = 8
     mesh: Any = None
+    shard_params: bool = True
     # paged KV pool
     page_size: Optional[int] = None
     num_pages: Optional[int] = None

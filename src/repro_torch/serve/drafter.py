@@ -48,20 +48,25 @@ def rollback_checkpoints(cache, checkpoints: Optional[Dict[str, List]],
     return cache
 
 
-def paged_slot_extend(model: Model, toks, cache, b: int, start_pos: int,
-                      new_pos: int):
+def paged_slot_extend(model: Model, toks, cache, b: Optional[int],
+                      start_pos: int, new_pos: int, table=None):
     """One prompt chunk toks (ck,) through a paged cache for slot ``b``
     (the target and attention drafters alike): the batch-1 sub-cache is the
     whole pool plus slot ``b``'s table row, so the writes land only in that
     slot's pages (in place).  ``new_pos`` (``min(start + ck, S0)``) drops
     the padded tail of the last chunk from ``pos``: its positions hold
     garbage k/v past ``pos``, which the position gate masks until decode
-    overwrites them.  -> (logits (1, ck, V), cache)."""
+    overwrites them.  ``b`` None is a rank of a sharded scheduler that
+    holds no row of the slot: the chunk writes its copy of the pool
+    through ``table`` (the slot's (1, max_pages) row), and no ``pos``
+    moves.  -> (logits (1, ck, V), cache)."""
     dev = cache["pos"].device
     sub = {"k": cache["k"], "v": cache["v"],
-           "page_table": cache["page_table"][b:b + 1],
+           "page_table": table if b is None else cache["page_table"][b:b + 1],
            "pos": torch.full((1,), start_pos, dtype=torch.int64, device=dev)}
     logits, _ = model.extend_step(toks[None], sub)
+    if b is None:
+        return logits, cache
     pos = cache["pos"].clone()
     pos[b] = new_pos
     return logits, dict(cache, pos=pos)
@@ -103,11 +108,13 @@ class TransformerDrafter:
         del max_seq
         return model.init_paged_cache(batch, num_pages, page_size, max_pages)
 
-    def slot_extend(self, model: Model, toks, cache, b: int,
-                    start_pos: int, new_pos: int):
+    def slot_extend(self, model: Model, toks, cache, b: Optional[int],
+                    start_pos: int, new_pos: int, table=None):
         """One admission chunk toks (ck,) for slot ``b`` through its pages
-        -> (logits (1, ck, V), cache)."""
-        return paged_slot_extend(model, toks, cache, b, start_pos, new_pos)
+        (``b`` None: through ``table``, ``paged_slot_extend``) -> (logits
+        (1, ck, V), cache)."""
+        return paged_slot_extend(model, toks, cache, b, start_pos, new_pos,
+                                 table)
 
 
 class RecurrentDrafter(TransformerDrafter):
@@ -139,20 +146,27 @@ class RecurrentDrafter(TransformerDrafter):
         del num_pages, page_size, max_pages
         return model.init_cache(batch, max_seq)
 
-    def slot_extend(self, model: Model, toks, cache, b: int,
-                    start_pos: int, new_pos: int):
+    def slot_extend(self, model: Model, toks, cache, b: Optional[int],
+                    start_pos: int, new_pos: int, table=None):
         """``extend_step`` on a batch-1 slice of the state rows with the
         padded tail identity-masked (``n_valid``); the rows are written
         back in place.  A re-admitted slot's rows still hold the previous
         request's state, which no position gate hides, so the first chunk
-        (``start_pos == 0``) starts from zeros, as a solo prefill does."""
+        (``start_pos == 0``) starts from zeros, as a solo prefill does.
+        ``b`` None (a sharded scheduler's rank that holds no row of the
+        slot) runs the chunk on zero rows, so that its weight gathers meet
+        the holder's; ``table`` is unused (the state is not paged)."""
+        del table
         keys = [k for k in self.state_keys if k in cache]
-        sub = {k: (torch.zeros_like(cache[k][:, b:b + 1]) if start_pos == 0
-                   else cache[k][:, b:b + 1]) for k in keys}
-        sub["pos"] = torch.full((1,), start_pos, dtype=torch.int64,
-                                device=cache["pos"].device)
-        logits, sub = model.extend_step(toks[None], sub,
-                                        n_valid=new_pos - start_pos)
+        rows = slice(0, 0) if b is None else slice(b, b + 1)
+        sub = {k: (torch.zeros_like(cache[k][:, rows]) if start_pos == 0
+                   else cache[k][:, rows]) for k in keys}
+        sub["pos"] = torch.full((rows.stop - rows.start,), start_pos,
+                                dtype=torch.int64, device=cache["pos"].device)
+        logits, sub = model.extend_step(toks[None][:rows.stop - rows.start],
+                                        sub, n_valid=new_pos - start_pos)
+        if b is None:
+            return logits, cache
         for k in keys:
             cache[k][:, b] = sub[k][:, 0].to(cache[k].dtype)
         pos = cache["pos"].clone()

@@ -17,6 +17,17 @@ form ``serve_stream``) runs it in rounds under the continuous-batching
 ``serve.scheduler.Scheduler``.  The KV caches are
 written in place, so a resumed ``state`` is consumed.
 
+Sharded execution (``mesh=``, a ``DeviceMesh`` over the ranks of a
+``torch.distributed`` group, every rank calling with the same
+arguments): the models are sharded in place by the production rules
+(``sharding.spmd.shard_params``; ``shard_params=False`` leaves them
+whole on every rank), and the batch splits over the mesh's dp axes
+(``sharding.rules.dp_axes``; a batch that does not divide replicates):
+each rank holds the engine state, caches and output buffers of its own
+rows.  The loop's done test is one all-reduce a step, so every rank runs
+the same steps, and the result is gathered to every rank; the returned
+``state`` holds this rank's rows and resumes with the same mesh.
+
 Drafts and targets may be recurrent (``models.ssm.RecurrentLM``): the
 drafter (``serve.drafter``) checkpoints and rolls back a recurrent draft,
 and a recurrent target runs its K+1 fed tokens one decode step at a time
@@ -40,6 +51,7 @@ from repro_torch.kernels import ref
 from repro_torch.models.model import Model, is_recurrent
 from repro_torch.serve.drafter import (RECURRENT_KEYS, get_drafter,
                                        rollback_checkpoints)
+from repro_torch.sharding import spmd
 
 EPS = 1e-30
 
@@ -548,7 +560,9 @@ def init_gen_carry(state: Dict[str, Any], n_vec, cap: int,
     }
 
 
-def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
+def make_gen_loop(tcfg, dcfg, scfg: SpecConfig,
+                  layout: Optional[spmd.Layout] = None,
+                  dp: tuple = ()) -> Callable:
     """Build loop(t_model, d_model, carry, n_tokens, eos_id, step_limit)
     -> carry: run spec steps until every slot is done or the carry's
     ``n_steps`` reaches ``step_limit``, committing each step's outputs
@@ -558,7 +572,10 @@ def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
     counting toward the AATPS denominators.  The loop reads the done flags
     on the host once per step (``n_syncs``); a step in which no slot is
     live never runs.  Each buffer's last column takes the clipped writes
-    (a valid emission past ``cap``)."""
+    (a valid emission past ``cap``).  Over a sharded batch (``layout``,
+    the carry this rank's rows of one split over ``dp``) the done test is
+    global, one all-reduce a step: a rank whose rows are all done steps
+    on, frozen, while another's are live."""
     step = make_spec_step(tcfg, dcfg, scfg)
     K1 = scfg.K + 1
 
@@ -571,7 +588,10 @@ def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
         idx = torch.arange(K1, device=dev)[None]
         while c["n_steps"] < step_limit:
             c["n_syncs"] += 1
-            if bool(c["done"].all()):
+            done = bool(c["done"].all())
+            if layout is not None:
+                done = layout.all_true(done, dp)
+            if done:
                 break
             live = ~c["done"]
             c["state"], outp = step(t_model, d_model, c["state"], live=live,
@@ -603,18 +623,33 @@ def make_gen_loop(tcfg, dcfg, scfg: SpecConfig) -> Callable:
     return loop
 
 
+def shard(t_model: Model, d_model: Model, mesh, global_batch: int,
+          shard_params: bool = True) -> spmd.Layout:
+    """The mesh's layout for a batch of ``global_batch`` rows over the two
+    models: shards their parameters in place (``shard_params``) and
+    refuses a MoE model under a split batch."""
+    layout = spmd.Layout(mesh)
+    if shard_params:
+        for m in (t_model, d_model):
+            spmd.shard_params(m, mesh)
+    spmd.refuse_moe_dp((t_model, d_model), layout, global_batch)
+    return layout
+
+
 def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
              prompts, *, n_tokens, key, strength=None,
              sync_every: Optional[int] = None,
              state: Optional[Dict[str, Any]] = None,
              eos_id: Optional[int] = None,
-             extras: Optional[Dict[str, Any]] = None) -> GenerationResult:
+             extras: Optional[Dict[str, Any]] = None,
+             mesh=None, shard_params: bool = True) -> GenerationResult:
     """Run spec steps until every slot reaches its target (scalar or (B,)
     ``n_tokens``) or emits ``eos_id``; finished slots freeze while the
     others continue.  Pass ``state=`` (a previous result's ``.state``) to
     continue where that call stopped.  Runs on the models' device.
     ``extras`` ("image_emb" / "audio_emb", (B, frames, d)) feed a VLM or
-    audio target's prefill.
+    audio target's prefill.  ``mesh`` runs it sharded (module docstring):
+    every rank passes the whole batch and gets the whole result.
 
     ``sync_every`` is accepted for parity with the reference and checked;
     the loop reads the done flags after every step either way."""
@@ -627,39 +662,57 @@ def generate(t_model: Model, d_model: Model, scfg: SpecConfig,
     n_vec = _n_tokens_vec(n_tokens, B)
     max_steps = int(n_vec.max())
     K1 = scfg.K + 1
+    layout, dp, rows = None, (), slice(0, B)
+    if mesh is not None:
+        layout = shard(t_model, d_model, mesh, B, shard_params)
+        dp, rows = layout.dp(B), layout.rows(B)
     if state is None:
         # worst case: a fast slot commits K+1 tokens on every step
-        state = init_state(t_model, d_model, scfg, prompts,
-                           S0 + 1 + K1 * max_steps + 2, key,
-                           strength=strength, extras=extras)
+        state = init_state(
+            t_model, d_model, scfg, prompts[rows], S0 + 1 + K1 * max_steps
+            + 2, prf.as_key_words(key, B, device=dev)[rows],
+            strength=_strength_vec(strength, B, dev)[rows],
+            extras=extras and {k: torch.as_tensor(v)[rows]
+                               for k, v in extras.items()})
     else:
         state = dict(state)
-        _fit_caches(state, int(torch.maximum(
-            state["t_cache"]["pos"], state["d_cache"]["pos"]).max())
-            + K1 * max_steps + 2)
+        if state["last"].shape[0] != rows.stop - rows.start:
+            raise ValueError(
+                f"a resumed state of {state['last'].shape[0]} rows; this "
+                f"rank holds {rows.stop - rows.start} of the batch of {B}"
+                + (f" on {layout}" if layout else ""))
+        pos = int(torch.maximum(state["t_cache"]["pos"],
+                                state["d_cache"]["pos"]).max())
+        if layout is not None:
+            pos = layout.host_max(pos, dp)
+        _fit_caches(state, pos + K1 * max_steps + 2)
     cap = max_steps + K1 + 1
-    carry = init_gen_carry(state, n_vec, cap, eos_id)
-    carry = make_gen_loop(t_model.cfg, d_model.cfg, scfg)(
-        t_model, d_model, carry, torch.as_tensor(n_vec, device=dev), eos_id,
-        max_steps)
-    denom = max(int(carry["alive_steps"].sum()), 1)
+    carry = init_gen_carry(state, n_vec[rows], cap, eos_id)
+    carry = make_gen_loop(t_model.cfg, d_model.cfg, scfg, layout, dp)(
+        t_model, d_model, carry,
+        torch.as_tensor(n_vec[rows], device=dev), eos_id, max_steps)
     state = carry["state"]
-
-    def host(name):
-        return carry[name][:, :cap].cpu().numpy()
-
+    out = {name: carry[name][:, :cap].cpu().numpy()
+           for name in ("toks", "fd", "us", "chs", "msk", "yd", "yt")}
+    out.update({name: carry[name].cpu().numpy()
+                for name in ("lens", "eos", "total", "acc_total",
+                             "alive_steps")})
+    out.update(keys=state["keys"].cpu().numpy(),
+               strength=state["strength"].cpu().numpy())
+    if layout is not None:
+        out = layout.gather_rows(out, dp)
+    denom = max(int(out["alive_steps"].sum()), 1)
     return GenerationResult(
-        tokens=host("toks").astype(np.int32),
-        lengths=carry["lens"].cpu().numpy(), from_draft=host("fd"),
-        u=host("us"), ctx_hashes=host("chs").astype(np.uint32),
-        masked=host("msk"),
-        aatps=int(carry["acc_total"].sum()) / denom,
-        tokens_per_step=int(carry["total"].sum()) / denom,
-        n_steps=carry["n_steps"], state=state,
-        eos=carry["eos"].cpu().numpy(), y_draft=host("yd"),
-        y_target=host("yt"), stat_scheme=make_decoder(scfg).name,
-        keys=state["keys"].cpu().numpy().astype(np.uint32),
-        strength=state["strength"].cpu().numpy(), n_syncs=carry["n_syncs"])
+        tokens=out["toks"].astype(np.int32), lengths=out["lens"],
+        from_draft=out["fd"], u=out["us"],
+        ctx_hashes=out["chs"].astype(np.uint32), masked=out["msk"],
+        aatps=int(out["acc_total"].sum()) / denom,
+        tokens_per_step=int(out["total"].sum()) / denom,
+        n_steps=carry["n_steps"], state=state, eos=out["eos"],
+        y_draft=out["yd"], y_target=out["yt"],
+        stat_scheme=make_decoder(scfg).name,
+        keys=out["keys"].astype(np.uint32), strength=out["strength"],
+        n_syncs=carry["n_syncs"])
 
 
 def _coerce_serve_config(config, legacy: Dict[str, Any], caller: str):
@@ -667,8 +720,7 @@ def _coerce_serve_config(config, legacy: Dict[str, Any], caller: str):
     is the supported surface; the historical keyword arguments
     (``config.LEGACY_KWARGS``) still work but fold into a ``ServeConfig``
     under a ``DeprecationWarning``.  Mixing both, or an unknown keyword,
-    raises ``TypeError``; ``shard_params`` acts only with a mesh, which is
-    not ported, so it raises ``NotImplementedError`` as ``mesh`` does."""
+    raises ``TypeError``."""
     import warnings
 
     from repro_torch.serve.config import LEGACY_KWARGS, ServeConfig
@@ -689,11 +741,6 @@ def _coerce_serve_config(config, legacy: Dict[str, Any], caller: str):
         raise TypeError(f"{caller}() needs config=ServeConfig(batch=..., "
                         "key=..., ...) (or the deprecated batch=/key= "
                         "kwargs)")
-    if "shard_params" in legacy:
-        raise NotImplementedError(
-            f"{caller}(shard_params=...): parameter sharding acts only with "
-            "a mesh, and the multi-device path is not ported (ROADMAP's "
-            "\"Multi-device and TPU tooling\" item)")
     warnings.warn(
         f"passing serving options to {caller}() as individual keyword "
         "arguments is deprecated — construct a serve.ServeConfig and "

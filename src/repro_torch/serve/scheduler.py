@@ -49,9 +49,22 @@ the chunk's *input*: a token surfaces one round after it commits, a slot
 that finishes inside the chunk flushes one round later, and no served bit
 changes (admission lands between chunks in stream order either way).
 A ``strength_controller`` (``serve.keys.StrengthController``) resolves a
-request's ``tier`` to the strength γ of its slot at admission.  Not
-ported: ``mesh=`` raises ``NotImplementedError`` (ROADMAP's
-"Multi-device and TPU tooling" item).
+request's ``tier`` to the strength γ of its slot at admission.
+
+Sharded serving (``mesh=``, every rank building the same Scheduler and
+submitting the same requests): the models are sharded as
+``engine.generate(mesh=...)`` shards them, and the slots split over the
+mesh's dp axes (``Layout.rows``): each rank's engine state, caches and
+buffers hold its own slots' rows.  Every rank runs the same host logic
+on the same queue (the same allocator and prefix cache, so the same page
+ids); the round's snapshot is the one ``device_get`` of this rank's rows
+plus one all-gather over dp, so every rank flushes and admits alike.  A
+dense admission runs on the slot's dp shard (and its "model" peers); a
+shard whose weights are gathered over "data" makes the same model calls
+on zero rows, so that its gathers meet the holder's.  The paged pool is
+replicated over dp, its kv heads over "model": every shard writes every
+admission chunk's pages into its copy, so a prefix page one shard's slot
+wrote is there for another's; decode writes only its own slots' pages.
 """
 from __future__ import annotations
 
@@ -70,6 +83,7 @@ from repro_torch.serve import engine as E
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.drafter import get_drafter, paged_slot_extend
 from repro_torch.serve.keys import _word_of
+from repro_torch.sharding import spmd
 
 # ---------------------------------------------------------------------------
 # Slot lifecycle
@@ -521,7 +535,7 @@ class Scheduler:
     def __init__(self, t_model, d_model, scfg: E.SpecConfig, *, batch: int,
                  key, max_tokens: int, max_prompt_len: int = 64,
                  eos_id: Optional[int] = None, sync_every: int = 8,
-                 mesh=None,
+                 mesh=None, shard_params: bool = True,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
@@ -538,7 +552,8 @@ class Scheduler:
                 "slot isolation")
         ServeConfig(batch=batch, key=key, max_tokens=max_tokens,
                     max_prompt_len=max_prompt_len, eos_id=eos_id,
-                    sync_every=sync_every, mesh=mesh, page_size=page_size,
+                    sync_every=sync_every, mesh=mesh,
+                    shard_params=shard_params, page_size=page_size,
                     num_pages=num_pages, prefill_chunk=prefill_chunk,
                     prefix_cache=prefix_cache, key_pool=key_pool,
                     strength_controller=strength_controller,
@@ -551,14 +566,22 @@ class Scheduler:
                 "text-only prompts and has no per-request modality extras "
                 "(audio_emb/image_emb) — use generate(extras=...) with "
                 "fixed batches")
-        if mesh is not None:
-            raise NotImplementedError(
-                "Scheduler(mesh=...): the multi-device path is not ported "
-                "(ROADMAP's \"Multi-device and TPU tooling\" item)")
         self.t_model, self.d_model = t_model, d_model
         self.tcfg, self.dcfg, self.scfg = t_model.cfg, d_model.cfg, scfg
         self.dev = t_model.embed.device
         self.B = batch
+        # this rank's slots (all of them without a mesh, or when the
+        # batch does not split), the dp axes they split over, and whether
+        # a model call for a slot it does not hold must still be made
+        self.layout: Optional[spmd.Layout] = None
+        self._dp: tuple = ()
+        self._rows = slice(0, batch)
+        if mesh is not None:
+            self.layout = E.shard(t_model, d_model, mesh, batch, shard_params)
+            self._dp = self.layout.dp(batch)
+            self._rows = self.layout.rows(batch)
+        self._peers = bool(self._dp) and spmd.needs_peers(t_model, d_model)
+        local = self._rows.stop - self._rows.start
         self._dec = E.make_decoder(scfg)
         self._stat_scheme = self._dec.name
         # default serving word: every request without a pool/explicit key
@@ -650,19 +673,26 @@ class Scheduler:
             # all-null page tables, pos 0: slots fill in place through
             # chunked prefill and the finalize
             state = E.init_empty_paged_state(
-                t_model, d_model, scfg, batch, num_pages=self.num_pages,
+                t_model, d_model, scfg, local, num_pages=self.num_pages,
                 page_size=self.page_size, max_pages=self.max_pages,
                 max_seq=self.max_seq)
         else:
             # a dummy prefill gives the state its shapes; every slot starts
             # FREE (done-masked) and is overwritten by its first admission
-            dummy = torch.zeros((batch, min(8, max_prompt_len)),
+            dummy = torch.zeros((local, min(8, max_prompt_len)),
                                 dtype=torch.int64, device=self.dev)
             state = E.init_state(t_model, d_model, scfg, dummy,
                                  self.max_seq, self.key_word)
-        self.carry = E.init_gen_carry(state, np.ones((batch,), np.int64),
+        self.carry = E.init_gen_carry(state, np.ones((local,), np.int64),
                                       self.cap, eos_id)
-        self._loop = E.make_gen_loop(self.tcfg, self.dcfg, scfg)
+        self._loop = E.make_gen_loop(self.tcfg, self.dcfg, scfg,
+                                     self.layout, self._dp)
+
+    def _row(self, b: int) -> Optional[int]:
+        """Slot ``b``'s row in this rank's state, or None where another dp
+        shard holds it."""
+        r = b - self._rows.start
+        return r if 0 <= r < self._rows.stop - self._rows.start else None
 
     # -- request intake ----------------------------------------------------
 
@@ -705,10 +735,10 @@ class Scheduler:
 
     def _arm_buffers(self, b: int, first: Dict[str, torch.Tensor],
                      n_tok_b: int) -> None:
-        """Reset slot ``b``'s buffer rows and flags for a new request:
-        buffer slot 0 takes the prefill sample and its metadata (``first``
-        holds (1, ...) rows: last, last_u, last_ctx, last_msk, last_yd,
-        last_yt)."""
+        """Reset buffer row ``b`` (this rank's row of the slot) and its
+        flags for a new request: buffer slot 0 takes the prefill sample
+        and its metadata (``first`` holds (1, ...) rows: last, last_u,
+        last_ctx, last_msk, last_yd, last_yt)."""
         c = self.carry
         for name, field in (("toks", "last"), ("us", "last_u"),
                             ("chs", "last_ctx"), ("msk", "last_msk"),
@@ -725,7 +755,7 @@ class Scheduler:
             c[name][b] = 0
 
     def _admit_dense(self, sub: Dict[str, Any], b: int, n_tok_b: int):
-        """Scatter a batch-1 engine state into slot ``b`` of the live state
+        """Scatter a batch-1 engine state into row ``b`` of the live state
         (in place; caches carry their batch dim at axis 1, ``pos`` at axis
         0; the scalar ``step_idx`` is shared) and arm its buffers."""
         state = self.carry["state"]
@@ -786,10 +816,16 @@ class Scheduler:
             slot.phase, slot.request = PREFILLING, req
             prompt = torch.as_tensor(req.prompt[None], dtype=torch.int64,
                                      device=self.dev)
-            sub = E.init_state(self.t_model, self.d_model, self.scfg,
-                               prompt, self.max_seq, self._slot_key[b],
-                               strength=self._slot_strength[b])
-            self._admit_dense(sub, b, req.n_tokens)
+            r = self._row(b)
+            if r is not None:
+                sub = E.init_state(self.t_model, self.d_model, self.scfg,
+                                   prompt, self.max_seq, self._slot_key[b],
+                                   strength=self._slot_strength[b])
+                self._admit_dense(sub, r, req.n_tokens)
+            elif self._peers:
+                # init_state's model calls, on zero rows
+                self.t_model.prefill(prompt[:0], self.max_seq)
+                self._drafter.prefill(self.d_model, prompt[:0], self.max_seq)
             self.n_tok[b] = req.n_tokens
             slot.phase = DECODING
             self._streamed[b] = 0
@@ -800,29 +836,44 @@ class Scheduler:
 
     # -- paged admission: page tables + chunked prefill --------------------
 
-    def _set_table(self, b: int) -> None:
-        """Write slot ``b``'s table row (its pages, then null-page
-        padding) into both caches: the two models' ``pos`` advance in
-        lockstep, so one logical allocation serves both pools.  A
-        recurrent draft's dense cache has no table."""
+    def _table_row(self, b: int) -> torch.Tensor:
+        """Slot ``b``'s table row (its pages, then null-page padding)."""
         row = np.zeros((self.max_pages,), np.int64)
         pages = self._slot_pages[b]
         row[:len(pages)] = pages
-        row = torch.as_tensor(row, device=self.dev)
+        return torch.as_tensor(row, device=self.dev)
+
+    def _set_table(self, b: int) -> None:
+        """Write slot ``b``'s table row into both caches, where this rank
+        holds the slot: the two models' ``pos`` advance in lockstep, so
+        one logical allocation serves both pools.  A recurrent draft's
+        dense cache has no table."""
+        r = self._row(b)
+        if r is None:
+            return
+        row = self._table_row(b)
         state = self.carry["state"]
         for cn in ("t_cache", "d_cache"):
             if "page_table" in state[cn]:
-                state[cn]["page_table"][b] = row
+                state[cn]["page_table"][r] = row
 
     def _chunk(self, toks: torch.Tensor, b: int, start_pos: int,
                new_pos: int) -> torch.Tensor:
         """One prompt chunk through both models' paged ``extend_step`` for
-        slot ``b`` -> target logits (1, ck, V)."""
+        slot ``b`` -> target logits (1, ck, V).  A rank that does not hold
+        the slot writes the chunk into its copy of the pool all the same
+        (through the slot's table row), and runs a recurrent draft's state
+        on zero rows where its peers need the call."""
         state = self.carry["state"]
+        r = self._row(b)
+        table = self._table_row(b)[None] if r is None else None
         t_logits, t_cache = paged_slot_extend(
-            self.t_model, toks, state["t_cache"], b, start_pos, new_pos)
-        _, d_cache = self._drafter.slot_extend(
-            self.d_model, toks, state["d_cache"], b, start_pos, new_pos)
+            self.t_model, toks, state["t_cache"], r, start_pos, new_pos,
+            table)
+        d_cache = state["d_cache"]
+        if r is not None or self._drafter.paged_cache or self._peers:
+            _, d_cache = self._drafter.slot_extend(
+                self.d_model, toks, d_cache, r, start_pos, new_pos, table)
         self.carry["state"] = dict(state, t_cache=t_cache, d_cache=d_cache)
         return t_logits
 
@@ -831,8 +882,11 @@ class Scheduler:
         """Sample slot ``b``'s prefill token from its last prompt-position
         logits and arm the slot — the paged counterpart of the dense
         admission, through ``engine.first_token_meta`` as ``init_state``
-        does.  The slot's key word and strength land in the state's rows
-        here."""
+        does (on the rank that holds the slot).  The slot's key word and
+        strength land in the state's rows here."""
+        r = self._row(b)
+        if r is None:
+            return
         state = self.carry["state"]
         dev = self.dev
         key_word, strength = self._slot_key[b], self._slot_strength[b]
@@ -843,16 +897,16 @@ class Scheduler:
             torch.as_tensor(window_row[None], device=dev), self.tcfg.vocab,
             torch.tensor([strength], dtype=torch.float32, device=dev))
         gated0 = meta["last_msk"][0]
-        state["keys"][b] = key_word
-        state["strength"][b] = strength
+        state["keys"][r] = key_word
+        state["strength"][r] = strength
         for k in ("window", "last", "last_ctx", "last_u", "last_msk",
                   "last_yd", "last_yt"):
-            state[k][b] = meta[k][0]
-        state["n_committed"][b] = state["t_cache"]["pos"][b] + 1
-        state["hist"][b] = 0
-        state["hist"][b, 0] = torch.where(gated0, 0, meta["last_ctx"][0])
-        state["hist_n"][b] = (~gated0).to(torch.int64)
-        self._arm_buffers(b, meta, n_tok_b)
+            state[k][r] = meta[k][0]
+        state["n_committed"][r] = state["t_cache"]["pos"][r] + 1
+        state["hist"][r] = 0
+        state["hist"][r, 0] = torch.where(gated0, 0, meta["last_ctx"][0])
+        state["hist_n"][r] = (~gated0).to(torch.int64)
+        self._arm_buffers(r, meta, n_tok_b)
 
     def _admit_paged(self) -> int:
         """Reserve pages and page tables for queued prompts (FIFO, with
@@ -981,7 +1035,7 @@ class Scheduler:
     def _run_chunk(self) -> None:
         """Advance the loop by up to ``sync_every`` steps (it stops earlier
         when every live slot drains)."""
-        n_tok = torch.as_tensor(self.n_tok, device=self.dev)
+        n_tok = torch.as_tensor(self.n_tok[self._rows], device=self.dev)
         self.carry = self._loop(self.t_model, self.d_model, self.carry,
                                 n_tok, self.eos_id,
                                 self.carry["n_steps"] + self.sync_every)
@@ -991,30 +1045,37 @@ class Scheduler:
                   "alive_steps")
 
     def _snap_handles(self, carry) -> Dict[str, Any]:
-        """Enqueue one sync round's host view without waiting: the (B,)
+        """Enqueue one sync round's host view without waiting: this rank's
         flags (and paged ``pos``) and the full buffer rows of every
-        DECODING slot, gathered on the device (a copy: the loop writes the
-        buffers in place) and copied into pinned host tensors, then one
-        event after those copies (``_host_copy``).  Under ``overlap`` this
-        runs before the decode chunk, so ``device_get`` never waits on
-        it."""
+        DECODING slot it holds, gathered on the device (a copy: the loop
+        writes the buffers in place) and copied into pinned host tensors,
+        then one event after those copies (``_host_copy``).  Under
+        ``overlap`` this runs before the decode chunk, so ``device_get``
+        never waits on it."""
         flags = {k: carry[k] for k in self._FLAG_KEYS}
         if self.paged:
             flags["pos"] = carry["state"]["t_cache"]["pos"]
-        live = [b for b, s in enumerate(self.slots) if s.phase == DECODING]
+        live = [b for b, s in enumerate(self.slots)
+                if s.phase == DECODING and self._row(b) is not None]
         rows = {}
         if live:
-            idx = torch.tensor(live, dtype=torch.int64,
+            idx = torch.tensor([self._row(b) for b in live],
+                               dtype=torch.int64,
                                pin_memory=self.dev.type == "cuda")
             idx = idx.to(self.dev, non_blocking=True)
             rows = {k: carry[k].index_select(0, idx) for k in self._ROW_KEYS}
         return _host_copy({"flags": flags, "rows": rows, "live": live})
 
     def _take_snapshot(self, handles) -> Dict[str, Any]:
-        """The round's one transfer (``device_get``), trimmed on the host
-        with the ``lens`` of the same view; refreshes the host mirrors
-        ``_ensure_pages`` plans from."""
+        """The round's one transfer (``device_get``), gathered over dp to
+        the whole batch's view (one all-gather) on a sharded batch;
+        refreshes the host mirrors ``_ensure_pages`` plans from."""
         snap = device_get(handles)
+        if self._dp:
+            got = self.layout.gather_rows(
+                {**snap["flags"], "rows": snap["rows"]}, self._dp)
+            rows = got.pop("rows")
+            snap = {"flags": got, "rows": rows}
         flags = snap["flags"]
         if self.paged:
             self._pos_host[:] = flags["pos"]

@@ -935,3 +935,31 @@ def test_overlap_serving_changes_no_bit(cuda, monkeypatch, paged):
         for f in ("tokens", "src", "u", "ctx_hashes", "masked", "y_draft",
                   "y_target"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.gpu
+def test_zero_row_calls_launch_nothing(cuda):
+    """A rank of a sharded scheduler that holds no row of a slot makes the
+    slot's model calls on zero rows (so that its weight gathers meet its
+    peers'): the paged and recurrent wrappers return empty outputs of
+    the right shapes and launch no kernel."""
+    ops.reset_launches()
+    f32 = dict(device=cuda, dtype=torch.float32)
+    pool = torch.zeros((4, 16, 2, 64), **f32)
+    out = ops.paged_attention(torch.zeros((0, 5, 4, 64), **f32), pool, pool,
+                              torch.zeros((0, 8), dtype=torch.int64,
+                                          device=cuda),
+                              torch.zeros((0,), dtype=torch.int64,
+                                          device=cuda))
+    assert out.shape == (0, 5, 4, 64)
+    x = torch.zeros((0, 7, 2, 64), **f32)
+    y, s = ops.wkv(x, x, x, x, torch.zeros((2, 64), **f32),
+                   torch.zeros((0, 2, 64, 64), **f32))
+    assert y.shape == (0, 7, 2, 64) and s.shape == (0, 2, 64, 64)
+    la, bc = torch.zeros((0, 200, 4), **f32), torch.zeros((0, 200, 16), **f32)
+    h0 = torch.zeros((0, 4, 32, 16), **f32)
+    dtx = torch.zeros((0, 200, 4, 32), **f32)
+    for y, h in (ops.ssd(la, dtx, bc, bc, h0, chunk=128),
+                 ops.ssd_scan(la, dtx, bc, bc, h0)):
+        assert y.shape == (0, 200, 4, 32) and h.shape == (0, 4, 32, 16)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES

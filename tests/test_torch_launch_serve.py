@@ -6,8 +6,11 @@ pair of the examples (``repro_torch.train.pair``) and the examples
   of the same port models: the fixed-batch path, and a ``--requests``
   replay with streaming, overlap, the paged pool, the prefix cache, a key
   pool, an explicit key, a uid and a tier line.
-- ``--mesh``, ``--dry-run``, an unknown request field and an ``--arch``
-  outside the registry are refused.
+- ``--devices 2 --mesh 1x2`` (two gloo ranks, tensor-parallel) serves
+  the batch as the unsharded launcher does, outside margin rows.
+- ``--dry-run``, ``--multi-pod``, ``--devices`` without ``--mesh``, an
+  unknown request field and an ``--arch`` outside the registry are
+  refused.
 - ``train_pair`` writes its checkpoints and a second call loads them.
 - ``quickstart``, ``serve_watermarked`` and ``tradeoff_curves`` run on
   ``--device cpu``; every entry point defaults to the card.
@@ -22,6 +25,7 @@ import torch
 from repro_torch.examples import quickstart, serve_watermarked
 from repro_torch.examples import tradeoff_curves
 from repro_torch.launch import serve as LS
+from repro_torch.serve import divergence
 from repro_torch.serve import engine as E
 from repro_torch.serve import keys as KZ
 from repro_torch.serve.config import ServeConfig
@@ -86,10 +90,30 @@ def test_launcher_replay_matches_serve_requests(tmp_path, capsys):
     assert f"req 40: {by_uid[40].length} tokens key=000004d2" in out
 
 
+def test_launcher_mesh_matches_unsharded():
+    sharded = LS.main(CPU + ["--devices", "2", "--mesh", "1x2"])
+    models = LS.models("yi-6b", "", "cpu")
+    scfg = E.SpecConfig(K=2, temperature=0.7)
+    prompts = LS.prompt_batch(2)
+    res = E.generate(*models, scfg, prompts, n_tokens=8, key=LS.KEY)
+    assert sharded.state is None and sharded.lengths.min() >= 8
+    for b in range(2):
+        j = divergence.first_divergence(res, sharded, b)
+        if j is not None:       # a near-tie the sharded sums round apart
+            assert divergence.decision_margin(*models, scfg, prompts[b],
+                                              sharded, b, j) < 1e-5
+        n = int(res.lengths[b]) if j is None else j
+        np.testing.assert_array_equal(sharded.tokens[b, :n],
+                                      res.tokens[b, :n])
+
+
 def test_launcher_refusals(tmp_path, capsys):
-    for flag in (["--mesh", "2x1"], ["--dry-run"], ["--devices", "8"]):
+    for flag in (["--dry-run"], ["--multi-pod"]):
         with pytest.raises(NotImplementedError, match="Multi-device"):
             LS.main(CPU + flag)
+    with pytest.raises(SystemExit):       # --devices starts --mesh's ranks
+        LS.main(CPU + ["--devices", "8"])
+    assert "give --mesh" in capsys.readouterr().err
     bad = tmp_path / "bad.jsonl"
     bad.write_text(json.dumps({"tokens": [1, 2], "n_tokenz": 4}) + "\n")
     with pytest.raises(SystemExit):

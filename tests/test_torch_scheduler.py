@@ -19,7 +19,6 @@ across by repro_torch.convert.
   extent, and PyTorch's CPU softmax may round the last bit differently
   over another extent.
 """
-import asyncio
 import dataclasses
 
 import jax
@@ -299,37 +298,27 @@ def test_key_pool_and_config_match_reference():
     cfg = TC.ServeConfig(batch=2, key=0).resolved(
         [TS.as_request(r) for r in _requests(1)])
     assert cfg.max_tokens == max(n for _, n in _requests(1))
-    # every Scheduler keyword of the reference but shard_params, which only
-    # acts with a mesh (not ported)
-    assert set(cfg.scheduler_kwargs()) == \
-        set(JC.LEGACY_KWARGS) - {"shard_params"}
+    # every Scheduler keyword of the reference
+    assert set(cfg.scheduler_kwargs()) == set(JC.LEGACY_KWARGS)
 
 
 def test_unported_options_raise(port_pair):
+    """What the serving surface still refuses.  ``mesh=`` and
+    ``shard_params`` are ported (their refusals, of the sharded shapes
+    the port does not run, are tests/test_torch_sharding.py's)."""
     tm, dm = port_pair
     scfg = TE.SpecConfig(K=3)
-    with pytest.raises(NotImplementedError):
-        TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4,
-                     mesh=object())
-
-    async def stream():
-        async for _ in TE.serve_stream(
-                tm, dm, scfg, _requests(1),
-                config=TC.ServeConfig(batch=2, key=0, mesh=object())):
-            pass
-    with pytest.raises(NotImplementedError):
-        asyncio.run(stream())
     with pytest.raises(ValueError):
         TS.Scheduler(tm, dm, TE.SpecConfig(accept="standard"), batch=2,
                      key=0, max_tokens=4)
-    # the keyword-argument shim refuses shard_params (it acts only with a
-    # mesh) and a mix with config=; the Scheduler takes no shard_params
-    with pytest.raises(NotImplementedError):
-        TE.serve_requests(tm, dm, scfg, [], batch=2, key=0,
-                          shard_params=False)
+    # the keyword-argument shim takes shard_params (it acts only with a
+    # mesh) and refuses a mix with config=, as the reference's does
+    with pytest.warns(DeprecationWarning):
+        assert TE.serve_requests(tm, dm, scfg, [], batch=2, key=0,
+                                 shard_params=False) == []
     with pytest.raises(TypeError):
         TE.serve_requests(tm, dm, scfg, [],
                           config=TC.ServeConfig(batch=2, key=0), batch=2)
-    with pytest.raises(TypeError):
-        TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4,
-                     shard_params=False)
+    sched = TS.Scheduler(tm, dm, scfg, batch=2, key=0, max_tokens=4,
+                         shard_params=False)
+    assert sched.layout is None

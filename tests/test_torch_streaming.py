@@ -321,7 +321,13 @@ def test_legacy_kwargs_shim(fn):
         _served(fn, config=cfg, sink_every=2)
     with pytest.raises(TypeError, match="config=ServeConfig"):
         _served(fn)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        _served(fn, batch=2, key=KEY, shard_params=False)
+    # shard_params acts only with a mesh: without one it serves the same
+    with pytest.warns(DeprecationWarning, match="ServeConfig"):
+        unsharded = _served(fn, batch=2, key=KEY, sync_every=2,
+                            shard_params=False)
+    if fn is TE.serve_stream:
+        assert unsharded == legacy
+    else:
+        _assert_same_bits(legacy, unsharded)
     assert set(TC.LEGACY_KWARGS) == set(JC.LEGACY_KWARGS)
     assert TC.LEGACY_KWARGS == JC.LEGACY_KWARGS
